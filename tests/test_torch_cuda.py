@@ -1,0 +1,140 @@
+"""The port on the card: CUDA kernels against their plain PyTorch versions and
+the CUDA render path against the CPU one, at small shapes and at the edges
+the main path does not reach (V=8, other chunks, ragged image edges, empty
+and overflowing layouts).
+
+Marked `cuda`; each test skips without a card. On a machine with one:
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from gs2m_tpu_torch.core.camera import Camera
+from gs2m_tpu_torch.core.gaussians import Gaussians
+from gs2m_tpu_torch.models.render import render
+from gs2m_tpu_torch.ops import blend
+from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
+from gs2m_tpu_torch.ops.projection import project
+from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def scene(seed, n, spread=1.0, msd=2e-3, opacity=0.8, sh_degree=2):
+    rng = np.random.default_rng(seed)
+    K = (sh_degree + 1) ** 2
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    params = dict(
+        xyz=f(n, 3) * np.float32(spread), f_dc=f(n, 1, 3),
+        f_rest=0.1 * f(n, K - 1, 3),
+        scaling=np.log(np.sqrt(msd)) + 0.5 * f(n, 3),
+        rotation=f(n, 4), opacity=np.full((n, 1), opacity, np.float32),
+        albedo=f(n, 3), roughness=f(n, 1), metallic=f(n, 1))
+    return params, np.ones(n, bool), sh_degree
+
+
+def camera(W, H, device):
+    return Camera.create(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.9,
+                         0.9 * H / W, W, H, device=device)
+
+
+def k1_inputs(params, W, H, V, chunk, cap, device):
+    g = Gaussians.from_numpy(*params, device=device)
+    cam = camera(W, H, device)
+    op = g.get_opacity[:, 0]
+    proj = project(g, cam, g.max_sh_degree, op)
+    b = bin_gaussians(proj, H, W, 16, cap, chunk, op)
+    values = pack_values(proj.colors, build_features(g, cam),
+                         10 if V == 16 else 5)
+    geom, vals = blend.gather_instances(values, proj.means2d, proj.conics, op,
+                                        b.gid, b.is_null)
+    gy, gx = num_tiles(H, W, 16)
+    return geom, vals, b, dict(T=gy * gx, grid_x=gx, width=W, height=H,
+                               tile=16, chunk=chunk)
+
+
+CASES = [  # (seed, n, spread, opacity, W, H, V, chunk, cap)
+    (0, 3000, 1.0, 0.8, 160, 120, 16, 256, 2 ** 16),
+    (1, 3000, 1.0, 0.8, 150, 113, 8, 64, 2 ** 16),     # ragged edges
+    (2, 5000, 0.3, 4.0, 96, 96, 16, 128, 2 ** 17),     # deep, terminates
+    (3, 2000, 1.0, 0.8, 200, 90, 8, 512, 2 ** 16),
+    (4, 3000, 1.0, 0.8, 160, 120, 16, 64, 64 * 40),    # overflow
+    (5, 50, 0.05, 0.8, 256, 192, 16, 256, 2 ** 12),    # mostly empty tiles
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
+def test_k1_matches_plain_version(cuda, case):
+    seed, n, spread, opacity, W, H, V, chunk, cap = case
+    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
+                                  W, H, V, chunk, cap, cuda)
+    n0 = blend.LAUNCHES["blend_fwd"]
+    ker = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["blend_fwd"] == n0 + 1
+    ref = blend.blend_fwd_plain(geom, vals, b.chunk_tile, **kw)
+    for name in ("img", "fT", "clogT"):
+        a, r = getattr(ker, name), getattr(ref, name)
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4, msg=name)
+    for name in ("cdone", "obs"):
+        assert torch.equal(getattr(ker, name), getattr(ref, name)), name
+    if seed == 2:
+        assert bool((ker.cdone > 0).any())
+    if seed == 4:
+        assert int(b.dropped) > 0
+
+
+def test_k1_rejects_cpu_only_shapes(cuda):
+    geom = torch.zeros(8, 256, device=cuda)
+    with pytest.raises(ValueError):
+        blend.blend_fwd(geom, torch.zeros(12, 256, device=cuda),
+                        torch.zeros(1, dtype=torch.int32, device=cuda), T=1,
+                        grid_x=1, width=16, height=16, tile=16, chunk=256)
+
+
+@pytest.mark.parametrize("stage", [(False, False), (True, False), (True, True)])
+def test_render_on_card_matches_cpu(cuda, stage):
+    params = scene(7, 4000)
+    pk = {}
+    for dev in ("cpu", cuda):
+        g = Gaussians.from_numpy(*params, device=dev)
+        pk[str(dev)] = render(g, camera(144, 104, dev),
+                              torch.full((3,), 0.25, device=dev), 2,
+                              geometry_stage=stage[0], material_stage=stage[1],
+                              sobel_normal=True, chunk=128,
+                              instance_cap=2 ** 16)
+    c, d = pk["cpu"], pk["cuda"]
+    for k in ("radii", "dropped", "visibility_filter"):
+        assert torch.equal(d[k].cpu(), c[k]), k
+    # CUDA's and the CPU's exp/log differ by an ulp here and there, and one
+    # ulp at the alpha >= 1/255 gate flips a whole instance.
+    for k in ("observe", "normal_mask"):
+        assert float((d[k].cpu() == c[k]).float().mean()) >= 0.999, k
+    # sobel_map normalizes cross products of depth differences, which scales
+    # those ulps by 1/|cross| (observed up to 6e-5 on an H100): atol 1e-4.
+    for k, v in c.items():
+        if v.dtype.is_floating_point:
+            torch.testing.assert_close(d[k].cpu(), v, rtol=1e-4,
+                                       atol=1e-4 if k == "sobel_map" else 1e-5,
+                                       msg=lambda m, k=k: f"{k}: {m}")
+
+
+def test_binning_on_card_equals_cpu(cuda):
+    """The same projection binned on both devices: exactly equal layouts."""
+    g = Gaussians.from_numpy(*scene(8, 3000), device="cpu")
+    op = g.get_opacity[:, 0]
+    proj = project(g, camera(160, 120, "cpu"), 2, op)
+    ref = bin_gaussians(proj, 120, 160, 16, 2 ** 14, 64, op)
+    got = bin_gaussians(type(proj)(*[x.to(cuda) for x in proj]), 120, 160, 16,
+                        2 ** 14, 64, op.to(cuda))
+    for name, a, b in zip(ref._fields, ref, got):
+        assert torch.equal(b.cpu(), a), name

@@ -1,0 +1,44 @@
+"""The port stands alone: no module of gs2m_tpu_torch, and not chip_smoke.py,
+imports JAX or anything of the JAX package (gs2m_tpu_torch itself is fine).
+
+An AST scan, not a sys.modules check: the test process has JAX loaded for
+the comparison tests.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "gs2m_tpu")
+SOURCES = sorted((ROOT / "gs2m_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield "." * node.level + (node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_has_its_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for mod in ("__init__", "core/config", "core/sh", "core/camera",
+                "core/gaussians", "data/ply", "data/colmap", "data/readers",
+                "data/scene", "ops/projection", "ops/binning", "ops/blend",
+                "ops/rasterize", "ops/normals", "models/render",
+                "utils/images", "apps/render"):
+        assert f"gs2m_tpu_torch/{mod}.py" in names, mod
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_jax_package_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in _imported(tree):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
