@@ -1,19 +1,34 @@
 """On-card smoke test of the PyTorch + CUDA port (gs2m_tpu_torch).
 
-Builds every kernel from csrc/, makes a synthetic full-width scene from a
-seed (500k Gaussians in the slab layout of bench.py, SH degree 3, four
-1600x1200 views, COLMAP sparse/0, a point_cloud snapshot and cfg_args.json,
-all written with the port's own writers), then:
+Builds every kernel from csrc/ (one nvcc per source, all at once), makes two
+synthetic full-width scenes from a seed with the port's own writers, and:
 
-  kernel phase  K1 (csrc/blend_fwd.cu) against its plain PyTorch version on
-                view 0's real binning, with the stated tolerances, timed by
-                CUDA events, beside its bound
-  path phase    the render app, gs2m_tpu_torch.apps.render.main, over all
-                views; launch counts are zeroed just before and read just
-                after, and every kernel of the path must have launched
+  render scene  500k Gaussians in the slab layout of bench.py, SH degree 3,
+                four 1600x1200 views, COLMAP sparse/0, a point_cloud snapshot
+  kernel phase  on view 0's real binning (V=16): K1 (csrc/blend_fwd.cu), K2
+                (csrc/blend_bwd.cu, seeded cotangent) and K3
+                (csrc/blend_obs.cu) against their plain PyTorch versions with
+                the stated tolerances, K2's per-Gaussian grads at the
+                check_grads gate and bit-equal across two runs; each timed by
+                CUDA events beside its bound from the run's data
+  render path   the render app, gs2m_tpu_torch.apps.render.main, over all
+                views, and a profile of one render
+  train scene   bench_train.py's operating point: 8 views at 800x600 (DTU at
+                -r 2) on a ring, 300k points3D in its box, seeded noise GT
+                images, widened neighbor thresholds
+  train path    the train app, gs2m_tpu_torch.apps.train.main: warmup then
+                geometry steps, densification at two boundaries, evaluation
+                and a snapshot at the end; then the trim's observe counter
+                over the 8 views; then warmup and geometry steps timed and
+                one geometry step profiled; then the kernel phase again at
+                the train path's own shapes (the trained Gaussians on view 0,
+                V=8, the trainer's chunk and instance cap)
 
+Launch counts are zeroed just before each path and read just after; every
+kernel of a path must have launched, as often as its schedule implies.
 Prints the card's name and power limit, then one JSON line of kernel
-records, and as the last line {"ok": true, "device": {...}}. Any failed
+records (one per kernel and path, from that path's kernel phase), and as
+the last line {"ok": true, "device": {...}}. Any failed
 phase exits nonzero. Needs one CUDA card:
 
     python3 chip_smoke.py [--seed 0]
@@ -36,6 +51,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # The render-full cell: DTU's native resolution and bench.py's 500k slab.
 GAUSSIANS, WIDTH, HEIGHT, VIEWS = 500_000, 1600, 1200, 4
+# The train cell: bench_train.py's operating point (DTU at -r 2).
+TRAIN_POINTS, TRAIN_W, TRAIN_H, TRAIN_VIEWS = 300_000, 800, 600, 8
+TRAIN_ITERS, GEOMETRY_FROM, DENSIFY_FROM, DENSIFY_EVERY = 20, 5, 5, 8
+EVAL_VIEWS = 5  # the train app evaluates the first five train views
 
 
 def fail(msg: str):
@@ -136,7 +155,7 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     its (instance, pixel) pairs before termination / contributing."""
     import torch
 
-    from gs2m_tpu_torch.ops.blend import ALPHA_MIN, LOG_EPS, pixel_coords
+    from gs2m_tpu_torch.ops.blend import chunk_walk, pixel_coords
 
     V = raw.img.shape[1]
     P = raw.clogT.shape[-1]
@@ -147,17 +166,12 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     pairs = contrib = 0
     for c in torch.split(live_idx, 512):
         px, py = pixel_coords(chunk_tile[c].long(), 16, grid_x)
-        gc = g[:, c].permute(1, 2, 0)[..., None]
-        dx = gc[:, :, 0] - px[:, None]
-        dy = gc[:, :, 1] - py[:, None]
-        pw = -0.5 * (gc[:, :, 2] * dx * dx + gc[:, :, 4] * dy * dy) - gc[:, :, 3] * dx * dy
-        alpha = torch.clamp_max(gc[:, :, 5] * torch.exp(torch.clamp_max(pw, 0.0)), 0.99)
+        st = chunk_walk(g[:, c].permute(1, 2, 0)[..., None], px, py,
+                        raw.clogT[c, 0], raw.cdone[c, 0] > 0, width=width,
+                        height=height)
         inside = ((px < width) & (py < height))[:, None]
-        alpha = torch.where((pw <= 0) & (alpha >= ALPHA_MIN) & inside, alpha, 0.0)
-        test = raw.clogT[c] + torch.cumsum(torch.log1p(-alpha), dim=1)
-        dn = (raw.cdone[c] > 0) | (test < LOG_EPS)
-        pairs += int((~dn & inside).sum())
-        contrib += int(((alpha > 0) & ~dn).sum())
+        pairs += int((~st.done & inside).sum())
+        contrib += int(st.contribute.sum())
     n_live = int(live.sum())
     bytes_ = (n_live * chunk * (6 + V) * 4          # geometry + values read
               + n_chunks * 4                         # chunk_tile
@@ -167,7 +181,20 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     return bytes_, flops, pairs, contrib, n_live
 
 
-def kernel_phase(g, cam, chunk: int, cap: int) -> dict:
+def bound(bytes_: float, flops: float) -> dict:
+    """The least time the card could take: the larger of bytes over HBM rate
+    and operations over fp32 rate (H100 SXM peaks)."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return dict(bytes=bytes_, flops=flops, bound_bytes_ms=t_bytes,
+                bound_ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int):
+    """K1 against its plain version on the binning of one view, with the
+    value width (V) that `feature_count` gives; returns (report, context)
+    where the context carries the binning and K1's outputs to K2 and K3."""
     import torch
 
     from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
@@ -184,7 +211,7 @@ def kernel_phase(g, cam, chunk: int, cap: int) -> dict:
     binning = bin_gaussians(proj, H, W, 16, cap, chunk, op)
     if int(binning.dropped) != 0:
         fail(f"kernel phase binning dropped {int(binning.dropped)}")
-    values = pack_values(proj.colors, build_features(g, cam), 9)
+    values = pack_values(proj.colors, build_features(g, cam), feature_count)
     geom, vals = gather_instances(values, proj.means2d, proj.conics, op,
                                   binning.gid, binning.is_null)
     kw = dict(T=T, grid_x=grid_x, width=W, height=H, tile=16, chunk=chunk)
@@ -199,25 +226,43 @@ def kernel_phase(g, cam, chunk: int, cap: int) -> dict:
     report = {"V": vals.shape[0], "instances": int(binning.num_instances),
               "aligned": int(binning.num_aligned), "n_chunks": cap // chunk}
     max_err = 0.0
+    problems = []
     for name in ("img", "fT", "clogT"):
         a, b = getattr(ker, name), getattr(ref, name)
         if not bool(torch.isfinite(a).all()):
             fail(f"K1 {name} is not finite")
         d = (a - b).abs()
-        err, frac = float(d.max()), float((d > 1e-5).float().mean())
-        limit = 1e-3 * (1.0 + float(b.abs().max()))
+        off = d > 1e-5
+        err, frac = float(d.max()), float(off.float().mean())
         report[f"{name}_max_abs_err"] = err
         report[f"{name}_frac_over_1e-5"] = frac
-        if name != "clogT":
-            max_err = max(max_err, err)
-        if frac > 1e-4 or err > limit:
-            fail(f"K1 {name}: max |diff| {err:.3g} (limit {limit:.3g}), "
-                 f"{frac:.3g} of entries over 1e-5 (limit 1e-4)")
+        if frac > 1e-4:
+            problems.append(f"K1 {name}: {frac:.3g} of entries over 1e-5 "
+                            f"(limit 1e-4)")
+        if name == "clogT":
+            # A pixel whose termination flips on one ulp keeps, in every
+            # later chunk of its tile, a carry off by that instance's
+            # log1p(-alpha) (up to 4.6): only the share of such entries is
+            # held. The larger of the two carries there shows where they sit.
+            report["clogT_off_max_logT"] = (
+                float(torch.maximum(a, b)[off].max()) if bool(off.any())
+                else None)
+            continue
+        # Image and final T move by at most ~T at termination (1e-4) there.
+        limit = 1e-3 * (1.0 + float(b.abs().max()))
+        max_err = max(max_err, err)
+        if err > limit:
+            problems.append(f"K1 {name}: max |diff| {err:.3g} (limit "
+                            f"{limit:.3g})")
     for name in ("cdone", "obs"):
         eq = float((getattr(ker, name) == getattr(ref, name)).float().mean())
         report[f"{name}_equal_frac"] = eq
         if eq < 0.9999:
-            fail(f"K1 {name}: only {eq:.6f} of entries equal (need 0.9999)")
+            problems.append(f"K1 {name}: only {eq:.6f} of entries equal "
+                            f"(need 0.9999)")
+    if problems:
+        print(f"[smoke] K1 report: {json.dumps(report)}")
+        fail("; ".join(problems))
 
     ms = time_ms(lambda: blend_fwd(geom, vals, binning.chunk_tile, **kw), 20)
     plain_ms = time_ms(lambda: blend_fwd_plain(geom, vals, binning.chunk_tile,
@@ -225,19 +270,173 @@ def kernel_phase(g, cam, chunk: int, cap: int) -> dict:
     bytes_, flops, pairs, contrib, n_live = k1_work(
         geom, ker, binning.chunk_tile, T=T, grid_x=grid_x, width=W, height=H,
         chunk=chunk)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    report.update(ms=ms, plain_ms=plain_ms, bytes=bytes_, flops=flops,
-                  live_pairs=pairs, contributing_pairs=contrib,
-                  live_chunks=n_live, bound_bytes_ms=t_bytes,
-                  bound_ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                  max_abs_err=max_err)
+    report.update(ms=ms, plain_ms=plain_ms, live_pairs=pairs,
+                  contributing_pairs=contrib, live_chunks=n_live,
+                  max_abs_err=max_err, **bound(bytes_, flops))
+    ctx = dict(geom=geom, vals=vals, binning=binning, kw=kw, k1=ker,
+               pairs=pairs, contrib=contrib, n_live=n_live)
+    return report, ctx
+
+
+def k2_phase(ctx: dict) -> dict:
+    """K2 against its plain version on one view's binning, K1's carries and a
+    seeded cotangent: per channel, >= 99.99 % of entries within
+    1e-4 * max|channel| + 1e-6 (one ulp at a termination or gate edge flips
+    a whole instance's term); the per-Gaussian sums of both at the
+    check_grads gate; a second run bit-equal."""
+    import torch
+
+    from gs2m_tpu_torch.ops.blend import (LAUNCHES, blend_bwd,
+                                          blend_bwd_plain, segment_sum)
+    from gs2m_tpu_torch.utils.grad_gate import grad_gate
+
+    geom, vals, b, kw, k1 = (ctx[k] for k in ("geom", "vals", "binning",
+                                               "kw", "k1"))
+    T, V, P, chunk = kw["T"], vals.shape[0], 256, kw["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g_img = torch.randn(T + 1, V, P, generator=gen, device="cuda")
+    gT = torch.randn(T + 1, 1, P, generator=gen, device="cuda")
+    g_img[T] = 0.0
+    gT[T] = 0.0
+    args = (geom, vals, b.chunk_tile, k1.clogT, k1.cdone, g_img, gT, k1.fT)
+    n0 = LAUNCHES["blend_bwd"]
+    ker = blend_bwd(*args, **kw)
+    again = blend_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    if LAUNCHES["blend_bwd"] != n0 + 2:
+        fail("blend_bwd did not launch its kernel on a CUDA tensor")
+    ref = blend_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    report = {"bit_equal_rerun": bool(torch.equal(ker.dgeom, again.dgeom)
+                                      and torch.equal(ker.dvals, again.dvals))}
+    if not report["bit_equal_rerun"]:
+        fail("K2: two runs on the same inputs differ")
+    a = torch.cat([ker.dvals, ker.dgeom])
+    r = torch.cat([ref.dvals, ref.dgeom])
+    if not bool(torch.isfinite(a).all()):
+        fail("K2 output is not finite")
+    scale = r.abs().amax(dim=1, keepdim=True)
+    d = (a - r).abs()
+    frac_ok = (d <= 1e-4 * scale + 1e-6).float().mean(dim=1)
+    report["min_frac_within_tol"] = float(frac_ok.min())
+    report["max_abs_err"] = float(d.max())
+    if float(frac_ok.min()) < 0.9999:
+        fail(f"K2: a channel has only {float(frac_ok.min()):.6f} of entries "
+             f"within 1e-4*max+1e-6 (need 0.9999)")
+    C = b.gauss_present.shape[0]
+    key = torch.where(b.is_null, C, b.gid)
+    ga, gr = segment_sum(a, key, C), segment_sum(r, key, C)
+    leaves = {"values": slice(0, V), "means2d": slice(V, V + 2),
+              "conics": slice(V + 2, V + 5), "opacity": slice(V + 5, V + 6),
+              "abs_sink": slice(V + 6, V + 8)}
+    for name, sl in leaves.items():
+        rep = grad_gate(ga[sl].cpu().numpy(), gr[sl].cpu().numpy())
+        report[f"gate_{name}"] = {k: rep[k] for k in ("p999", "rel_to_max",
+                                                      "pass")}
+        if not rep["pass"]:
+            fail(f"K2 per-Gaussian {name} grads fail the gate: {rep}")
+    if not torch.equal(segment_sum(a, key, C), ga):
+        fail("the per-Gaussian reduction is not deterministic")
+
+    ms = time_ms(lambda: blend_bwd(*args, **kw), 20)
+    plain_ms = time_ms(lambda: blend_bwd_plain(*args, **kw), 3)
+    n_chunks = b.chunk_tile.shape[0]
+    n_tiles = int(torch.unique(b.chunk_tile[b.chunk_tile < T]).numel())
+    pairs, contrib, n_live = ctx["pairs"], ctx["contrib"], ctx["n_live"]
+    # Read once: geometry (6 rows), values and carries of the live chunks,
+    # each carried tile's cotangents, fT and gT; written once: 8+V rows of
+    # every slot. Operations the function needs (not the kernel's second
+    # walk): one alpha step (~20) per live pair; the per-pixel gradient
+    # terms (~4V + 40) and the (8+V)-channel tile sums per contributing
+    # pair, the only pairs whose terms are not zero.
+    bytes_ = (n_live * (chunk * (6 + V) + 2 * P) * 4
+              + n_tiles * (V + 2) * P * 4 + n_chunks * 4
+              + n_chunks * chunk * (8 + V) * 4)
+    flops = 20 * pairs + (4 * V + 40 + 8 + V) * contrib
+    report.update(ms=ms, plain_ms=plain_ms, **bound(bytes_, flops))
     return report
 
 
-def profile_render(fn, wall_ms: float) -> None:
-    """Where one render's time goes: device time by kernel (torch.profiler
+def k3_phase(ctx: dict) -> dict:
+    """K3 against its plain version and K1's obs on the same binning:
+    equal, count for count."""
+    import torch
+
+    from gs2m_tpu_torch.ops.blend import LAUNCHES, blend_obs, blend_obs_plain
+
+    geom, b, kw, k1 = (ctx[k] for k in ("geom", "binning", "kw", "k1"))
+    n0 = LAUNCHES["blend_obs"]
+    ker = blend_obs(geom, b.chunk_tile, **kw)
+    torch.cuda.synchronize()
+    if LAUNCHES["blend_obs"] != n0 + 1:
+        fail("blend_obs did not launch its kernel on a CUDA tensor")
+    ref = blend_obs_plain(geom, b.chunk_tile, **kw)
+    report = {"equal_plain": bool(torch.equal(ker, ref)),
+              "equal_k1_obs": bool(torch.equal(ker, k1.obs)),
+              "observed_instances": int((ker > 0).sum())}
+    if not (report["equal_plain"] and report["equal_k1_obs"]):
+        fail(f"K3 counts differ: {report}")
+    ms = time_ms(lambda: blend_obs(geom, b.chunk_tile, **kw), 20)
+    plain_ms = time_ms(lambda: blend_obs_plain(geom, b.chunk_tile, **kw), 3)
+    n_chunks, chunk = b.chunk_tile.shape[0], kw["chunk"]
+    # Geometry (6 rows) of the live chunks read, obs written; ~20
+    # operations per live (instance, pixel) pair.
+    bytes_ = ctx["n_live"] * chunk * 6 * 4 + n_chunks * (chunk + 1) * 4
+    report.update(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                  **bound(bytes_, 20 * ctx["pairs"]))
+    return report
+
+
+def kernel_phases(cell: str, g, cam, chunk: int, cap: int,
+                  feature_count: int) -> dict:
+    """K1, K2 and K3 against their plain versions on one view of a cell;
+    returns each kernel's report by launch-counter name."""
+    k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count)
+    print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
+    k2 = k2_phase(ctx)
+    print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
+    k3 = k3_phase(ctx)
+    print(f"[smoke] {cell} K3 blend_obs: {json.dumps(k3)}")
+    return {"blend_fwd": k1, "blend_bwd": k2, "blend_obs": k3}
+
+
+def build_train_scene(root: Path, n: int, width: int, height: int,
+                      views: int, seed: int) -> Path:
+    """bench_train.py's layout as a COLMAP scene: n points uniform in its
+    box with uniform colors, `views` cameras on a ring of radius 4 at height
+    0.8 looking at the origin, focal 1.1 x width, seeded noise GT images."""
+    from PIL import Image
+
+    from gs2m_tpu_torch.data import colmap as cm
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-1.6, 1.6, n), rng.uniform(-1.2, 1.2, n),
+                    rng.uniform(-1.0, 1.0, n)], -1)
+    cols = rng.uniform(0.1, 0.9, (n, 3))
+    scene = root / "train_scene"
+    for d in (scene / "sparse" / "0", scene / "images"):
+        d.mkdir(parents=True)
+    fx = 1.1 * width
+    cams = {1: cm.ColmapCamera(1, "PINHOLE", width, height,
+                               np.array([fx, fx, width / 2, height / 2]))}
+    imgs = {}
+    for i in range(views):
+        th = 2 * np.pi * i / views
+        R, T = look_at(np.array([4 * np.sin(th), 0.8, -4 * np.cos(th)]),
+                       np.zeros(3))
+        name = f"view_{i:03d}.png"
+        imgs[i + 1] = cm.ColmapImage(i + 1, cm.rotmat_to_qvec(R.T), T, 1, name)
+        Image.fromarray(rng.integers(0, 256, (height, width, 3),
+                                     dtype=np.uint8)).save(scene / "images" / name)
+    cm.write_cameras_binary(str(scene / "sparse/0/cameras.bin"), cams)
+    cm.write_images_binary(str(scene / "sparse/0/images.bin"), imgs)
+    cm.write_points3d_binary(str(scene / "sparse/0/points3D.bin"), pts,
+                             cols * 255)
+    return scene
+
+
+def profile_call(label: str, fn, wall_ms: float) -> dict:
+    """Where one call's time goes: device time by kernel (torch.profiler
     over one warm call), and the device's idle share against `wall_ms`, the
     unprofiled CUDA-event time of the same call (the profiler's own overhead
     stretches its wall, so its idle share is printed only beside it)."""
@@ -257,12 +456,14 @@ def profile_render(fn, wall_ms: float) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[smoke] render profile: device busy {busy_ms:.2f} ms; idle share "
+    print(f"[smoke] {label} profile: device busy {busy_ms:.2f} ms; idle share "
           f"{1 - busy_ms / wall_ms:.3f} of the unprofiled {wall_ms:.2f} ms "
           f"(under the profiler: wall {prof_wall_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / prof_wall_ms:.3f})")
+          f"{1 - busy_ms / prof_wall_ms:.3f}); {sum(r[1] for r in rows)} "
+          f"kernel launches")
     for ms, n, name in rows[:15]:
         print(f"[smoke]   {ms:8.3f} ms {n:4d}x  {name}")
+    return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
 def main(argv=None) -> None:
@@ -277,12 +478,15 @@ def main(argv=None) -> None:
 
     from gs2m_tpu_torch import _build
     from gs2m_tpu_torch.apps import render as render_app
+    from gs2m_tpu_torch.apps import train as train_app
     from gs2m_tpu_torch.core.config import load_cfg_args
     from gs2m_tpu_torch.core.gaussians import Gaussians
     from gs2m_tpu_torch.data.ply import load_gaussian_ply
     from gs2m_tpu_torch.data.scene import Scene
     from gs2m_tpu_torch.models.render import render
     from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.train.trainer import (choose_neighbor,
+                                              make_observe_counter)
 
     # --- phase 1: card and build ---------------------------------------------
     card = subprocess.run(
@@ -310,12 +514,13 @@ def main(argv=None) -> None:
     g = Gaussians.from_raw(load_gaussian_ply(
         str(model_dir / "point_cloud/iteration_1/point_cloud.ply")),
         model_cfg.sh_degree, device=dev)
-    cam = Scene(model_cfg, shuffle=False, device=dev).train_cameras[0]
+    cam = Scene(model_cfg, shuffle=False, load_images=False,
+                device=dev).train_cameras[0]
     cap = max(8 * g.capacity // pipe.chunk * pipe.chunk, 4 * pipe.chunk)
-    k1 = kernel_phase(g, cam, pipe.chunk, cap)
-    print(f"[smoke] K1 blend_fwd: {json.dumps(k1)}")
+    # The material-stage package's width, V=16 (feature_count 9).
+    render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9)
 
-    # --- phase 4: the render app, the slice's main path --------------------------
+    # --- phase 4: the render app (slice 1's path) ------------------------------
     for k in blend.LAUNCHES:
         blend.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -352,16 +557,131 @@ def main(argv=None) -> None:
     render_ms = time_ms(render_view0, 5)
     print(f"[smoke] render() view 0, device path: {render_ms:.2f} ms "
           f"(median of 5, CUDA events) on {card}")
-    profile_render(render_view0, render_ms)
+    profile_call("render", render_view0, render_ms)
+    del g
 
-    record = {"name": "blend_fwd", "route": "cuda",
-              "source": "gs2m_tpu_torch/csrc/blend_fwd.cu",
-              "replaces": "gs2m_tpu/ops/blend_pallas.py:125",
-              "launches": launches["blend_fwd"],
-              "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-              "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-              "bound_by": k1["bound_by"], "library_ms": None}
-    print(json.dumps({"kernels": [record]}))
+    # --- phase 5: the train app (this slice's path) -------------------------------
+    t0 = time.perf_counter()
+    train_dir = build_train_scene(root, TRAIN_POINTS, TRAIN_W, TRAIN_H,
+                                  TRAIN_VIEWS, args.seed)
+    print(f"[smoke] train scene: {TRAIN_POINTS} points, {TRAIN_VIEWS} views "
+          f"at {TRAIN_W}x{TRAIN_H} in {time.perf_counter() - t0:.1f} s")
+    train_model = root / "train_model"
+    argv = ["-s", str(train_dir), "-m", str(train_model), "-r", "1",
+            "--iterations", str(TRAIN_ITERS),
+            "--geometry_from_iter", str(GEOMETRY_FROM),
+            "--densify_from_iter", str(DENSIFY_FROM),
+            "--densification_interval", str(DENSIFY_EVERY),
+            "--test_iterations", str(TRAIN_ITERS),
+            "--save_iterations", str(TRAIN_ITERS),
+            "--multi_view_max_angle", "179", "--multi_view_max_dist", "100",
+            "--nearby_cam_max_angle", "179", "--nearby_cam_max_dist", "100",
+            "--quiet"]
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    trainer = train_app.main(argv)
+    counts, trim_drop = make_observe_counter(trainer.scene, trainer.pipe,
+                                             trainer.instance_cap)(
+        trainer.gaussians)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = dict(blend.LAUNCHES)
+
+    n_warm = GEOMETRY_FROM
+    n_geo = TRAIN_ITERS - GEOMETRY_FROM
+    n_densify = sum(1 for it in range(1, TRAIN_ITERS + 1)
+                    if it > DENSIFY_FROM and it % DENSIFY_EVERY == 0)
+    want = {"blend_fwd": n_warm + 2 * n_geo + EVAL_VIEWS,
+            "blend_bwd": n_warm + 2 * n_geo, "blend_obs": TRAIN_VIEWS}
+    m = trainer.last_metrics
+    loss = float(m["loss"])
+    snap = train_model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
+    alive = trainer.gaussians.alive
+    seen2 = float(((counts >= 2) & alive).sum()) / max(int(alive.sum()), 1)
+    print(f"[smoke] train app: {TRAIN_ITERS} iterations ({n_warm} warmup, "
+          f"{n_geo} geometry, {n_densify} densifications) + trim counter in "
+          f"{train_wall:.1f} s; last loss {loss:.5f}, dropped "
+          f"{int(m['dropped'])}, eval PSNR {trainer.last_eval['psnr']:.3f}; "
+          f"densify {trainer.last_densify_info}; alive "
+          f"{trainer.gaussians.num_alive} of {trainer.gaussians.capacity}; "
+          f"instance cap {trainer.instance_cap}; trim: {seen2:.4f} of alive "
+          f"Gaussians seen in >= 2 views, dropped {int(trim_drop)}; "
+          f"launches {train_launches} (expected {want})")
+    if trainer.iteration != TRAIN_ITERS or not np.isfinite(loss):
+        fail(f"train app: iteration {trainer.iteration}, loss {loss}")
+    if int(m["dropped"]) != 0 or int(trim_drop) != 0:
+        fail("train path: binning dropped instances")
+    if not np.isfinite(trainer.last_eval["psnr"]) or not snap.exists():
+        fail("train app: no finite evaluation or no snapshot")
+    if n_densify != 2 or trainer.last_densify_info is None:
+        fail("train app: the densification boundaries did not run")
+    if train_launches != want:
+        fail(f"train path launches {train_launches}, expected {want}")
+    for name, leaf in trainer.gaussians.params_dict().items():
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"train app: parameter {name} is not finite")
+
+    # Steps timed through the trainer's own step functions (no maintenance
+    # inside the window), then one geometry step profiled.
+    def one_step(geometry: bool):
+        view = trainer._next_view()
+        nearest, has = choose_neighbor(trainer.rng,
+                                       trainer.scene.nearest_table[view],
+                                       trainer.scene.nearest_mask[view], view)
+        (trainer.gaussians, trainer.opt_state, trainer.stats,
+         out) = trainer._get_step(geometry)(
+            trainer.gaussians, trainer.opt_state, trainer.stats, view,
+            nearest, has, trainer.iteration, trainer.active_sh_degree,
+            trainer.generator)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms = time_ms(lambda: one_step(False), 5)
+    geo_ms = time_ms(lambda: one_step(True), 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        pkg = render(trainer.gaussians, trainer.scene.train_cameras[0],
+                     torch.zeros(3, device=dev), trainer.active_sh_degree,
+                     geometry_stage=True, chunk=trainer.pipe.chunk,
+                     instance_cap=trainer.instance_cap)
+    print(f"[smoke] train step at {TRAIN_W}x{TRAIN_H}, "
+          f"{trainer.gaussians.num_alive} Gaussians, "
+          f"{int(pkg['num_instances'])} instances in view 0: warmup "
+          f"{warm_ms:.2f} ms/step (median of 5), geometry {geo_ms:.2f} "
+          f"ms/step (median of 10), CUDA events, on {card}; peak memory "
+          f"{peak:.2f} GiB")
+    profile_call("geometry step", lambda: one_step(True), geo_ms)
+
+    # --- phase 6: the kernels at the shapes the train path gives them ------
+    # After the timed steps, so the plain versions' large buffers do not sit
+    # in the allocator while steps are timed. The trained Gaussians on view 0
+    # at 800x600, the geometry stage's V=8 (feature_count 5), the trainer's
+    # chunk and instance cap.
+    train_kernels = kernel_phases(
+        "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
+        trainer.pipe.chunk, trainer.instance_cap, 5)
+
+    # One record per kernel and path, each from the kernel phase run at that
+    # path's own shapes. K2 and K3 at the render cell (V=16) are checked
+    # above, but no ported path launches them there yet (V=16 backward is
+    # the material stage's), so they have no record here.
+    replaces = {"blend_fwd": 125, "blend_bwd": 322, "blend_obs": 227}
+    records = []
+    for cell, reports, path_launches in (
+            ("train-full", train_kernels, train_launches),
+            ("render-full", {"blend_fwd": render_kernels["blend_fwd"]},
+             launches)):
+        for name, rep in reports.items():
+            records.append({
+                "name": name, "cell": cell, "route": "cuda",
+                "source": f"gs2m_tpu_torch/csrc/{name}.cu",
+                "replaces": f"gs2m_tpu/ops/blend_pallas.py:{replaces[name]}",
+                "launches": path_launches[name],
+                "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+                "bound_by": rep["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 Each source compiles with nvcc for sm_90a into its own shared library with a
 plain C interface, loaded with ctypes. Libraries are cached under
-build/kernels/ beside the package, named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+build/kernels/ beside the package, named by a hash of the source, the
+shared headers (csrc/*.cuh) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 `build()` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
@@ -33,7 +34,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The shared headers are part of every source's hash: editing one
+    # rebuilds every kernel that may include it.
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,0 +1,173 @@
+"""Training CLI: the warmup and geometry stages.
+
+Port of gs2m_tpu/apps/train.py: the same flag surface (model, pipeline and
+optimization groups, test/save iteration lists), the same staging
+defaults, cfg_args.json persistence for the render app, train_log.jsonl
+every 100 iterations and PLY snapshots at the save iterations. Runs on
+CUDA (default) or, when asked, on the CPU.
+
+Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
+--data_parallel and --distributed ("Parallelism"), material models
+("Material stage"), --start_checkpoint and --checkpoint_iterations
+("Checkpoints"), --profile_iterations ("Profiler flag").
+
+Usage: python -m gs2m_tpu_torch.apps.train -s <scene> -m <out> [--iterations N]
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from argparse import ArgumentParser
+
+import numpy as np
+import torch
+
+
+def main(argv=None):
+    """Train; returns the Trainer (its state is the trained model)."""
+    from gs2m_tpu_torch import resolve_device
+    from gs2m_tpu_torch.core.config import (ModelConfig, OptimConfig,
+                                            PipelineConfig, add_group_args,
+                                            extract_group, save_cfg_args)
+
+    parser = ArgumentParser(description="gs2m_tpu_torch training")
+    add_group_args(parser, ModelConfig)
+    add_group_args(parser, PipelineConfig)
+    add_group_args(parser, OptimConfig)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[5_000, 7_000, 10_000, 15_000, 20_000, 25_000,
+                                 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--profile_iterations", nargs=2, type=int,
+                        default=None, metavar=("START", "STOP"))
+    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--distributed", action="store_true")
+    args = parser.parse_args(argv)
+
+    model_cfg = extract_group(args, ModelConfig)
+    pipe = extract_group(args, PipelineConfig)
+    opt = extract_group(args, OptimConfig)
+    if args.data_parallel or args.distributed:
+        raise NotImplementedError(
+            "--data_parallel and --distributed are not ported yet: "
+            "ROADMAP.md Queue A, 'Parallelism'")
+    if model_cfg.material:
+        raise NotImplementedError(
+            "the material stage is not ported yet: ROADMAP.md Queue A, "
+            "'Material stage'")
+    if args.start_checkpoint or args.checkpoint_iterations:
+        raise NotImplementedError(
+            "versioned checkpoints (--start_checkpoint, "
+            "--checkpoint_iterations) are not ported yet: ROADMAP.md Queue A, "
+            "'Checkpoints'")
+    if args.profile_iterations:
+        raise NotImplementedError(
+            "--profile_iterations is not ported yet: ROADMAP.md Queue A, "
+            "'Profiler flag'")
+    device = resolve_device(args.device)
+
+    from gs2m_tpu_torch.data.scene import Scene
+    from gs2m_tpu_torch.train.reporting import TrainingReporter, evaluate_views
+    from gs2m_tpu_torch.train.trainer import Trainer
+
+    save_iterations = sorted(set(args.save_iterations + [opt.iterations]))
+    os.makedirs(model_cfg.model_path, exist_ok=True)
+    save_cfg_args(model_cfg.model_path, model_cfg, pipe, opt)
+
+    print(f"[>] Loading scene: {model_cfg.source_path}")
+    scene = Scene(model_cfg, opt, device=device)
+    print(f"[>] {len(scene.train_cameras)} train / {len(scene.test_cameras)} "
+          f"test views at {scene.train_cameras[0].width}x"
+          f"{scene.train_cameras[0].height}; extent {scene.cameras_extent:.3f}")
+    reporter = TrainingReporter(model_cfg.model_path, enable=not args.quiet)
+    trainer = Trainer(model_cfg, pipe, opt, scene)
+    print(f"[>] Capacity {trainer.gaussians.capacity}, "
+          f"{trainer.gaussians.num_alive} alive, on {device}")
+
+    t0 = time.time()
+    log_path = os.path.join(model_cfg.model_path, "train_log.jsonl")
+    ema = None
+    with open(log_path, "a") as log_file:
+        while trainer.iteration < opt.iterations:
+            metrics = trainer.train_step()
+            it = trainer.iteration
+            # Metrics stay on the device; reading them every step would add a
+            # host sync per iteration.
+            if it % 100 == 0:
+                loss = float(metrics["loss"])
+                ema = loss if ema is None else 0.4 * loss + 0.6 * ema
+                if not np.isfinite(loss):
+                    print(f"[!] non-finite loss at iteration {it} — model "
+                          f"state is likely corrupted", flush=True)
+                # Corrupt params can render as pure background (finite
+                # loss): check the leaves themselves.
+                for name, leaf in trainer.gaussians.params_dict().items():
+                    if not bool(torch.isfinite(leaf).all()):
+                        print(f"[!] non-finite values in param '{name}' at "
+                              f"iteration {it}", flush=True)
+                        break
+                alive = trainer.gaussians.num_alive
+                dt = time.time() - t0
+                if not args.quiet:
+                    print(f"[{it:>6}] loss {ema:.5f} Lrgb "
+                          f"{float(metrics['Lrgb']):.5f} Lgeo "
+                          f"{float(metrics['Lgeo']):.5f} points {alive} "
+                          f"({it / dt:.1f} it/s)", flush=True)
+                rec = {"iteration": it, "loss": ema, "points": alive,
+                       "elapsed_s": dt, "dropped": int(metrics["dropped"]),
+                       "mv_active": trainer.mv_active_count}
+                if trainer.last_trim_seconds is not None:
+                    rec["trim_s"] = round(trainer.last_trim_seconds, 2)
+                log_file.write(json.dumps(rec) + "\n")
+                log_file.flush()
+                reporter.scalars(it, {k: float(v) for k, v in metrics.items()},
+                                 alive, iter_time_ms=1e3 * dt / it)
+
+            if it in args.test_iterations:
+                res = evaluate_views(trainer, scene.train_cameras[:5],
+                                     scene.gt_images[:5], log_images_to=reporter,
+                                     iteration=it, tag="train")
+                line = f"[ITER {it:>6}] train PSNR {res['psnr']:.2f}"
+                if scene.test_cameras:
+                    tres = evaluate_views(trainer, scene.test_cameras,
+                                          scene.load_test_images(),
+                                          log_images_to=reporter, iteration=it,
+                                          tag="test")
+                    line += (f"  test PSNR {tres['psnr']:.2f} L1 "
+                             f"{tres['l1']:.4f} ({len(scene.test_cameras)} "
+                             f"views)")
+                    reporter.scalars(it, {"test_psnr": tres["psnr"],
+                                          "test_l1": tres["l1"]},
+                                     trainer.gaussians.num_alive)
+                    log_file.write(json.dumps({"iteration": it,
+                                               "test_psnr": tres["psnr"],
+                                               "test_l1": tres["l1"]}) + "\n")
+                    log_file.flush()
+                trainer.last_eval = res
+                print(line)
+                g = trainer.gaussians
+                reporter.histogram(it, "scene/opacity_histogram",
+                                   torch.sigmoid(g.opacity[g.alive]))
+
+            if it in save_iterations:
+                print(f"[ITER {it:>6}] Saving snapshot")
+                trainer.save_snapshot(it)
+
+    wall_min = (time.time() - t0) / 60.0
+    with open(os.path.join(model_cfg.model_path, "runtime.json"), "w") as f:
+        json.dump({"minutes": wall_min, "iterations": opt.iterations}, f)
+    print(f"[>] Training complete in {wall_min:.1f} min")
+    reporter.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

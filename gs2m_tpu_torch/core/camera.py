@@ -136,3 +136,19 @@ class Camera:
             torch.stack([self.fx / scale, zero, self.cx / scale]),
             torch.stack([zero, self.fy / scale, self.cy / scale]),
             torch.stack([zero, zero, one])])
+
+    def get_inv_K(self, scale: float = 1.0) -> torch.Tensor:
+        """The JAX package's (approximate) inverse K, term for term."""
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        one = torch.ones((), dtype=torch.float32, device=self.device)
+        return torch.stack([
+            torch.stack([scale / self.fx, zero, -self.cx / self.fx]),
+            torch.stack([zero, scale / self.fy, -self.cy / self.fy]),
+            torch.stack([zero, zero, one])])
+
+    def world_to_cam(self, pts: torch.Tensor) -> torch.Tensor:
+        """(N,3) world points -> camera space."""
+        return pts @ self.world_view[:3, :3] + self.world_view[3, :3]
+
+    def cam_to_world(self, pts: torch.Tensor) -> torch.Tensor:
+        return (pts - self.world_view[3, :3]) @ self.world_view[:3, :3].T

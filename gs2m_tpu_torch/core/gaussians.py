@@ -18,6 +18,11 @@ import numpy as np
 import torch
 
 from gs2m_tpu_torch import resolve_device
+from gs2m_tpu_torch.core import sh as shlib
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 def quat_to_rotmat_elems(q: torch.Tensor) -> tuple:
@@ -27,6 +32,13 @@ def quat_to_rotmat_elems(q: torch.Tensor) -> tuple:
     return (1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
             2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
             2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y))
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(…,4) normalized quaternion (r,x,y,z) -> (…,3,3) rotation matrix."""
+    e = quat_to_rotmat_elems(q)
+    return torch.stack([torch.stack(e[0:3], -1), torch.stack(e[3:6], -1),
+                        torch.stack(e[6:9], -1)], dim=-2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +137,46 @@ class Gaussians:
     # --- construction ----------------------------------------------------------
 
     @staticmethod
+    def create(points: np.ndarray, colors: np.ndarray, max_sh_degree: int,
+               capacity: int, mean_sq_dist: np.ndarray | None = None,
+               device=None) -> "Gaussians":
+        """Initialize from an SfM/random point cloud: SH DC from RGB,
+        log-scales from sqrt(mean 3-NN squared distance), identity
+        rotations, opacity 0.1, material logits 1; padded to `capacity`,
+        on `device` (None: the CUDA card, raising without one)."""
+        n = points.shape[0]
+        if capacity < n:
+            raise ValueError(f"capacity {capacity} < number of points {n}")
+        K = shlib.num_sh_coeffs(max_sh_degree)
+        if mean_sq_dist is None:
+            from gs2m_tpu_torch.ops.knn import mean_sq_dist_to_3nn
+            mean_sq_dist = mean_sq_dist_to_3nn(np.asarray(points, np.float32))
+        dist2 = np.maximum(np.asarray(mean_sq_dist, np.float32), 1e-7)
+        scales = np.repeat(np.log(np.sqrt(dist2))[:, None], 3, axis=1)
+        dc = shlib.rgb_to_sh_dc(np.asarray(colors, np.float32))[:, None, :]
+        op = float(inverse_sigmoid(torch.tensor(0.1, dtype=torch.float32)))
+
+        def pad(a, fill=0.0):
+            out = np.full((capacity,) + a.shape[1:], fill, np.float32)
+            out[:n] = a
+            return out
+
+        rot = np.zeros((capacity, 4), np.float32)
+        rot[:, 0] = 1.0
+        alive = np.zeros((capacity,), bool)
+        alive[:n] = True
+        params = {
+            "xyz": pad(np.asarray(points, np.float32)), "f_dc": pad(dc),
+            "f_rest": pad(np.zeros((n, K - 1, 3), np.float32)),
+            "scaling": pad(scales, fill=-10.0), "rotation": rot,
+            "opacity": pad(np.full((n, 1), op, np.float32), fill=-12.0),
+            "albedo": pad(np.ones((n, 3), np.float32)),
+            "roughness": pad(np.ones((n, 1), np.float32)),
+            "metallic": pad(np.ones((n, 1), np.float32)),
+        }
+        return Gaussians.from_numpy(params, alive, max_sh_degree, device)
+
+    @staticmethod
     def from_numpy(params: dict, alive: np.ndarray, max_sh_degree: int,
                    device=None) -> "Gaussians":
         """Carry-over from the JAX package: `params` holds its params_dict()
@@ -187,3 +239,11 @@ class Gaussians:
             "roughness": self.roughness,
             "metallic": self.metallic,
         }
+
+    def with_params(self, params: dict) -> "Gaussians":
+        return dataclasses.replace(
+            self, xyz=params["xyz"], features_dc=params["f_dc"],
+            features_rest=params["f_rest"], opacity=params["opacity"],
+            scaling=params["scaling"], rotation=params["rotation"],
+            albedo=params["albedo"], roughness=params["roughness"],
+            metallic=params["metallic"])

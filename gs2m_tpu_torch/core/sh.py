@@ -69,8 +69,11 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """SH -> RGB as the rasterizer does: +0.5 offset then clamp to >= 0."""
-    return torch.clamp_min(eval_sh(deg, sh, dirs) + 0.5, 0.0)
+    """SH -> RGB as the rasterizer does: +0.5 offset then clamp to >= 0.
+    torch.maximum, not clamp_min: at a tie (a color channel exactly 0) it
+    splits the gradient in half, as the JAX package's jnp.maximum does."""
+    x = eval_sh(deg, sh, dirs) + 0.5
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def rgb_to_sh_dc(rgb):

@@ -11,13 +11,11 @@
 // with ctypes; the entry returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // threads per block
-constexpr int kWarps = kPixels / 32;
-constexpr int kGeomRows = 6;            // mx, my, conic a, b, c, opacity
-constexpr int kFillBlocks = 264;        // 2 per SM on an H100
+using namespace gs2m;
 
 template <int V>
 __global__ void __launch_bounds__(kPixels)
@@ -78,47 +76,27 @@ blend_fwd_kernel(const float* __restrict__ geom,      // (8, I)
       continue;
     }
     const size_t base = (size_t)c * chunk;
-    for (int i = p; i < kGeomRows * chunk; i += kPixels) {
-      const int r = i / chunk;
-      s_geom[i] = geom[r * I + base + (i - r * chunk)];
-    }
-    for (int i = p; i < V * chunk; i += kPixels) {
-      const int r = i / chunk;
-      s_vals[i] = vals[r * I + base + (i - r * chunk)];
-    }
+    stage_rows(s_geom, geom, kGeomRows, I, base, chunk, p);
+    stage_rows(s_vals, vals, V, I, base, chunk, p);
     for (int i = p; i < kWarps * chunk; i += kPixels) s_obs[i] = 0;
     __syncthreads();
 
-    // The JAX package's recurrence, term for term: test = logT0 + running
-    // sum of log1p(-alpha); logT_excl = test - log1m.
+    // The JAX package's recurrence, term for term (blend_common.cuh).
     const float logT0 = logT;
     float cum = 0.f, contributed = 0.f;
     for (int k = 0; k < chunk; ++k) {
       // A warp whose inside pixels are all done adds nothing more; its
       // remaining observe entries stay 0.
       if (__all_sync(0xffffffffu, done || !inside)) break;
-      const float dx = s_geom[k] - px;
-      const float dy = s_geom[chunk + k] - py;
-      const float ca = s_geom[2 * chunk + k];
-      const float cb = s_geom[3 * chunk + k];
-      const float cc = s_geom[4 * chunk + k];
-      const float op = s_geom[5 * chunk + k];
-      const float power_raw = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      float alpha = fminf(0.99f, op * expf(fminf(power_raw, 0.f)));
-      const bool gate = power_raw <= 0.f && alpha >= alpha_min && inside;
-      alpha = gate ? alpha : 0.f;
-      const float log1m = log1pf(-alpha);
-      cum += log1m;
-      const float test = logT0 + cum;
-      done = done || test < log_eps;
+      const Step st = walk_step(s_geom, chunk, k, px, py, inside, logT0,
+                                log_eps, alpha_min, cum, done);
       bool seen = false;
-      if (alpha > 0.f && !done) {
-        const float logT_excl = test - log1m;
-        const float w = alpha * expf(logT_excl);
+      if (st.contribute) {
+        const float w = st.alpha * expf(st.logT_excl);
 #pragma unroll
         for (int v = 0; v < V; ++v) acc[v] += s_vals[v * chunk + k] * w;
-        contributed += log1m;
-        seen = logT_excl > log_half;
+        contributed += st.log1m;
+        seen = st.logT_excl > log_half;
       }
       const unsigned votes = __ballot_sync(0xffffffffu, seen);
       if (lane == 0) s_obs[warp * chunk + k] = __popc(votes);

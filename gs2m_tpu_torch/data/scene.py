@@ -1,10 +1,13 @@
-"""Scene state, camera side: dataset sniffing, cameras, cameras_extent.
+"""Scene state: dataset sniffing, cameras, GT pixel stacks, neighbor graph.
 
-Port of the part of gs2m_tpu/data/scene.py that the render app uses:
-`Scene(..., load_images=False)` reads the dataset, writes the model
-directory's cameras.json and input.ply, and builds one Camera per view on
-the scene's device. The GT image stacks, the neighbor tables and
-`training_setup` arrive with the training slice.
+Port of gs2m_tpu/data/scene.py: reads the dataset, writes the model
+directory's cameras.json and input.ply, builds one Camera per view on the
+scene's device, and (load_images=True) the (V, C, H, W) GT, alpha and
+luma-at-NCC-scale stacks there. `training_setup` builds the per-view
+nearest (multi-view loss) and nearby (roughness loss) neighbor tables.
+The cameras stay a Python list and the neighbor tables stay numpy on the
+host: the trainer picks a view and its neighbor on the host, so nothing is
+indexed on the device by a device value.
 """
 from __future__ import annotations
 
@@ -15,11 +18,14 @@ from pathlib import Path
 
 import numpy as np
 
+import torch
+
 from gs2m_tpu_torch import resolve_device
 from gs2m_tpu_torch.core.camera import Camera
-from gs2m_tpu_torch.core.config import ModelConfig
+from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig
 from gs2m_tpu_torch.data.readers import (SceneInfo, detect_and_read_scene,
-                                         focal2fov, pick_resolution)
+                                         focal2fov, load_view_arrays,
+                                         pick_resolution)
 
 
 def camera_to_json(idx: int, info) -> dict:
@@ -39,17 +45,58 @@ def camera_to_json(idx: int, info) -> dict:
     }
 
 
-class Scene:
-    """Loads a dataset's cameras onto `device` (None: the CUDA card, raising
-    without one)."""
+def build_neighbor_tables(cam_infos, opt: OptimConfig):
+    """Per-view nearest (multi-view loss) and nearby (roughness loss) index
+    tables: two (V, K) int32 arrays padded with the view's own index, and
+    (V, K) bool validity masks."""
+    V = len(cam_infos)
+    centers = np.stack([-(c.R @ c.T) for c in cam_infos], 0)
+    # Optical axis = 3rd column of the (transposed-w2c) rotation.
+    rays = np.stack([c.R[:, 2] for c in cam_infos], 0)
+    rays = rays / (np.linalg.norm(rays, axis=-1, keepdims=True) + 1e-12)
+    dists = np.linalg.norm(centers[:, None] - centers[None], axis=-1)
+    cosang = np.clip((rays[:, None] * rays[None]).sum(-1), -1.0, 1.0)
+    angles = np.arccos(cosang) * 180.0 / 3.14159
 
-    def __init__(self, model_cfg: ModelConfig, resolution_scale: float = 1.0,
-                 shuffle: bool = True, load_images: bool = False,
-                 scene_info: SceneInfo | None = None, device=None):
-        if load_images:
-            raise NotImplementedError(
-                "GT image stacks are not ported yet: ROADMAP.md Queue A, "
-                "'Training slice'; pass load_images=False")
+    def make_table(k, select):
+        table = np.tile(np.arange(V, dtype=np.int32)[:, None], (1, k))
+        mask = np.zeros((V, k), bool)
+        for i in range(V):
+            order = np.lexsort((angles[i], dists[i]))
+            chosen = select(order, angles[i][order], dists[i][order])
+            m = min(len(chosen), k)
+            table[i, :m] = chosen[:m]
+            mask[i, :m] = True
+        return table, mask
+
+    def nearest_select(order, a, d):
+        keep = ((a <= opt.multi_view_max_angle) & (d > opt.multi_view_min_dist)
+                & (d < opt.multi_view_max_dist))
+        return order[keep][:opt.multi_view_num]
+
+    def nearby_select(order, a, d):
+        keep = ((a <= opt.nearby_cam_max_angle) & (a >= opt.nearby_cam_min_angle)
+                & (d >= opt.nearby_cam_min_dist) & (d <= opt.nearby_cam_max_dist))
+        idx = order[keep]
+        n = min(opt.nearby_cam_num, len(idx))
+        if n == 0:
+            return idx[:0]
+        pos = np.round(np.linspace(0, len(idx) - 1, n)).astype(int)
+        return idx[pos]
+
+    nearest, nearest_mask = make_table(opt.multi_view_num, nearest_select)
+    nearby, nearby_mask = make_table(opt.nearby_cam_num, nearby_select)
+    return nearest, nearest_mask, nearby, nearby_mask
+
+
+class Scene:
+    """Loads a dataset onto `device` (None: the CUDA card, raising without
+    one); with `opt`, also sets up the training-time state."""
+
+    def __init__(self, model_cfg: ModelConfig, opt: OptimConfig | None = None,
+                 resolution_scale: float = 1.0, shuffle: bool = True,
+                 load_images: bool = True, scene_info: SceneInfo | None = None,
+                 device=None):
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         info = scene_info or detect_and_read_scene(
@@ -79,12 +126,79 @@ class Scene:
         self.train_cameras = [self._make_camera(c) for c in info.train_cameras]
         self.test_cameras = [self._make_camera(c) for c in info.test_cameras]
 
+        self.gt_images = None
+        self.alpha_masks = None
+        self.gray_images = None
+        self.ncc_scale = 1.0
+        self._test_images = None
+        if load_images and self.train_cameras:
+            self._load_train_images()
+        if opt is not None and self.train_cameras:
+            self.training_setup(opt)
+
     def _make_camera(self, ci) -> Camera:
         w, h = pick_resolution(ci.width, ci.height, self.model_cfg.resolution,
                                self.resolution_scale)
         return Camera.create(ci.R, ci.T, fovx=focal2fov(ci.fx, ci.width),
                              fovy=focal2fov(ci.fy, ci.height), width=w, height=h,
                              device=self.device)
+
+    def _view_rgb(self, ci, size) -> np.ndarray:
+        rgb, alpha = load_view_arrays(ci, size, self.model_cfg.mask_gt)
+        if self.model_cfg.white_background and alpha is not None:
+            rgb = rgb * alpha + (1.0 - alpha)
+        return rgb, alpha
+
+    def _load_train_images(self):
+        """Fill the (V, 3, H, W) GT and (V, 1, H, W) alpha stacks."""
+        rgbs, alphas = [], []
+        for ci, cam in zip(self.train_camera_infos, self.train_cameras):
+            rgb, alpha = self._view_rgb(ci, (cam.width, cam.height))
+            rgbs.append(rgb)
+            alphas.append(alpha if alpha is not None else np.ones_like(rgb[:1]))
+        self.gt_images = torch.from_numpy(np.stack(rgbs, 0)).to(self.device)
+        self.alpha_masks = torch.from_numpy(np.stack(alphas, 0)).to(self.device)
+
+    def load_test_images(self) -> list:
+        """GT images of the held-out split as host numpy, loaded at first
+        use (the evaluation touches them a handful of times per run)."""
+        if self._test_images is None:
+            self._test_images = [
+                self._view_rgb(ci, (cam.width, cam.height))[0]
+                for ci, cam in zip(self.test_camera_infos, self.test_cameras)]
+        return self._test_images
+
+    def training_setup(self, opt: OptimConfig):
+        (self.nearest_table, self.nearest_mask,
+         self.nearby_table, self.nearby_mask) = build_neighbor_tables(
+            self.train_camera_infos, opt)
+        if opt.multi_view_ncc_scale > 0:
+            self.ncc_scale = opt.multi_view_ncc_scale
+        elif self.model_cfg.resolution in (1, 2, 4, 8):
+            self.ncc_scale = 1.0 / self.model_cfg.resolution
+        else:
+            self.ncc_scale = 1.0
+        if self.gt_images is not None:
+            self._populate_gray_images()
+
+    def _populate_gray_images(self):
+        """Per-view luma (V, 1, H', W') at NCC scale."""
+        if self.ncc_scale == 1.0:
+            rgb = self.gt_images
+        else:
+            rgb = torch.from_numpy(np.stack([
+                self._view_rgb(ci, (int(cam.width / self.ncc_scale),
+                                    int(cam.height / self.ncc_scale)))[0]
+                for ci, cam in zip(self.train_camera_infos,
+                                   self.train_cameras)], 0)).to(self.device)
+        self.gray_images = (rgb[:, 0:1] * 0.299 + rgb[:, 1:2] * 0.587
+                            + rgb[:, 2:3] * 0.114)
+
+    def save_dir(self, iteration: int) -> str:
+        d = os.path.join(self.model_cfg.model_path, "point_cloud",
+                         f"iteration_{iteration}")
+        os.makedirs(d, exist_ok=True)
+        return d
 
 
 def search_max_iteration(point_cloud_dir: str) -> int:

@@ -12,6 +12,11 @@ output surface:
 
 feature_count staging: 1 (RGB warmup) / 5 (+distance+normal, geometry) /
 9 (+albedo+roughness, material) / +1 when blending metallic.
+
+Differentiable in the Gaussians' parameters through torch autograd (the
+blend's backward is kernel K2 on CUDA tensors). Densification statistics
+flow through the `m2d_sink` / `m2d_abs_sink` zero tensors, whose gradients
+the trainer reads. `count_observed` is the trim's observe-only pass.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from gs2m_tpu_torch.core.gaussians import Gaussians
 from gs2m_tpu_torch.ops.normals import normal_from_depth_image
 from gs2m_tpu_torch.ops.projection import project
 from gs2m_tpu_torch.ops.rasterize import (RasterOut, build_features,
+                                          observe_from_projected,
                                           rasterize_from_projected)
 
 
@@ -44,6 +50,8 @@ def render(
     tile: int = 16,
     chunk: int = 256,
     instance_cap: int = 2 ** 18,
+    m2d_sink: torch.Tensor | None = None,
+    m2d_abs_sink: torch.Tensor | None = None,
 ) -> dict:
     feature_count = feature_count_for(geometry_stage, material_stage,
                                       blend_metallic)
@@ -54,9 +62,25 @@ def render(
     proj = project(gaussians, camera, active_sh_degree, opacities, tile=tile)
     out = rasterize_from_projected(
         proj, opacities, features, bg, camera, feature_count=feature_count,
-        tile=tile, chunk=chunk, instance_cap=instance_cap)
+        tile=tile, chunk=chunk, instance_cap=instance_cap,
+        m2d_sink=m2d_sink, m2d_abs_sink=m2d_abs_sink)
     return derive_render_pkg(out, camera, bg, z_depth=z_depth,
                              sobel_normal=sobel_normal)
+
+
+def count_observed(gaussians: Gaussians, camera: Camera, tile: int = 16,
+                   chunk: int = 256, instance_cap: int = 2 ** 18
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-Gaussian observe counts for this view and the binning overflow
+    scalar — what the multi-view trim consumes — at a fraction of render()'s
+    cost: a color-free projection and the geometry-only blend sweep (K3).
+    Counts equal render(...)["observe"]."""
+    with torch.no_grad():
+        opac = gaussians.get_opacity[:, 0]
+        proj = project(gaussians, camera, 0, opac, tile=tile,
+                       with_colors=False)
+        return observe_from_projected(proj, opac, camera, tile=tile,
+                                      chunk=chunk, instance_cap=instance_cap)
 
 
 def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
@@ -66,7 +90,7 @@ def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
     H, W = camera.height, camera.width
     buffer = out.buffer
     normal_map = buffer[2:5]
-    normal_mask = torch.all(normal_map != 0.0, dim=0, keepdim=True)
+    normal_mask = torch.all(normal_map.detach() != 0.0, dim=0, keepdim=True)
 
     # World -> camera normals.
     n_flat = normal_map.permute(1, 2, 0).reshape(-1, 3)
@@ -111,7 +135,7 @@ def render_normal_from_depth_map(camera: Camera, depth: torch.Tensor,
                                  alpha: torch.Tensor) -> torch.Tensor:
     """World-space normals from the rendered depth, alpha-composited over
     the background."""
-    c2w = torch.linalg.inv(camera.world_view.T)
+    c2w = torch.linalg.inv_ex(camera.world_view.T).inverse  # no host sync
     n = normal_from_depth_image(depth, camera.get_K(), c2w)  # (H, W, 3)
     n = n * alpha[..., None] + bg[None, None, :] * (1.0 - alpha[..., None])
     return n.permute(2, 0, 1)

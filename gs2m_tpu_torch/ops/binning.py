@@ -60,9 +60,10 @@ def _scatter_add(positions: torch.Tensor, values, size: int) -> torch.Tensor:
     """(size,) int32 scatter-add of `values` at `positions`; positions >= size
     drop (they land in a spill slot, so no host sync is needed)."""
     out = torch.zeros(size + 1, dtype=I32, device=positions.device)
-    values = torch.broadcast_to(torch.as_tensor(values, dtype=I32,
-                                                device=positions.device),
-                                positions.shape)
+    if isinstance(values, torch.Tensor):
+        values = torch.broadcast_to(values.to(I32), positions.shape)
+    else:  # a fill, not a host-to-device copy
+        values = torch.full_like(positions, values, dtype=I32)
     out.index_add_(0, torch.clamp_max(positions, size).long(), values)
     return out[:size]
 
@@ -170,8 +171,8 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
 
     # A tile renders only if a chunk carries it (overflow can cut a nonempty
     # tile's chunks entirely; it then composites as background).
-    covered = torch.zeros(T + 1, dtype=torch.bool, device=dev)
-    covered[chunk_tile.long()] = True
+    covered = torch.zeros(T + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, chunk_tile.long(), True)
 
     return Binning(
         gid=gid,

@@ -1,9 +1,11 @@
-"""Tiled alpha blending, forward: the port of ops/blend_pallas.py's forward.
+"""Tiled alpha blending, forward, backward and observe counting.
 
-Counterpart of gs2m_tpu/ops/blend_pallas.py (`blend_tiles_pallas` forward:
-`_gather_instances`, kernel K1, `_untile`, the observe scatter) and of the
-math its XLA twin gs2m_tpu/ops/blend_xla.py shares. Backward (K2) and the
-autograd.Function arrive with the training slice.
+Counterpart of gs2m_tpu/ops/blend_pallas.py: `blend_tiles` is
+`blend_tiles_pallas` (`_gather_instances`, kernel K1, `_untile`, the observe
+scatter) as a torch.autograd.Function whose backward is `_retile`, kernel
+K2 and the per-Gaussian reduction; `observe_tiles` is
+`observe_tiles_pallas` (`_gather_geom`, kernel K3, the observe scatter).
+The math is the one its XLA twin gs2m_tpu/ops/blend_xla.py shares.
 
 K1 — csrc/blend_fwd.cu, replacing gs2m_tpu/ops/blend_pallas.py::_fwd_kernel
 (launched by `_run_forward`). For each chunk of depth-sorted instances of one
@@ -43,6 +45,50 @@ the live chunks + img, fT, carries and obs written once; flops ~20 per live
 the render app's full-width cell (1600x1200, 500k Gaussians, V=16) the
 flops term dominates: chip_smoke.py computes both from the run's data and
 prints them beside the kernel's time.
+
+K2 — csrc/blend_bwd.cu, replacing gs2m_tpu/ops/blend_pallas.py::_bwd_kernel
+(launched by `_run_backward`). Per tile it sweeps the chunks in reverse from
+K1's chunk-start carries, with S = fT*gT + sum of later w*u (u = g.v):
+  dalpha = T_excl*u - S_after/(1 - alpha), S_after = S + total - prefix(w*u)
+  (0 where not contributing and at the 0.99 clamp), dvals = sum_p w*g, and
+  dgeom rows d mx, d my, d conic a/b/c, d opacity, sum|ddx|, sum|ddy|
+  (AbsGS); a chunk whose tile was all done at its start gets zeros.
+Design. Same block/tile ownership as K1, walking the chunk range
+backwards with S and the V cotangents in registers. The TPU's in-chunk
+inclusive prefix is a triangular matmul; here each chunk is walked forward
+twice with K1's recurrence term for term (pass 1: total = sum w*u; pass 2:
+the running prefix, S_after = (S + total) - prefix), not as a reverse
+running sum or the CUDA reference's T-division, so termination and gate
+edges fall where K1's did. Per-instance outputs are sums over 256 pixels:
+warp shuffles, then a fixed-order sum of the 8 warps' partials through
+shared memory, 32 instances at a time (8 warps x 24 channels x 32 floats
+= 24 KB) — no atomics, so two runs are bit-equal. Each output column
+belongs to one chunk of one tile and is written once; the dummy tile's
+padding chunks get zeros from extra blocks.
+Bound: bytes = geometry (6 rows), values and carries of the live chunks,
+the tiles' cotangents, fT and gT read once + dgeom/dvals (8+V rows of all
+I slots) written once; flops = what the function needs, not the kernel's
+second walk: one alpha step (~20) per live (instance, pixel) pair, and
+the per-pixel gradient terms (~4V + 40) plus the (8+V)-channel tile sums
+per contributing pair (every other pair adds zeros). chip_smoke.py
+computes both from the run's data.
+
+K3 — csrc/blend_obs.cu, replacing gs2m_tpu/ops/blend_pallas.py::_obs_kernel
+(launched by `observe_tiles_pallas`). K1's alpha sweep and recurrence
+without values, image or carries; the same arithmetic and build flags, so
+its counts are bit-identical to K1's obs. Bound: geometry of the live
+chunks read + obs written; flops ~20 per live (instance, pixel) pair.
+
+The three kernels share one per-(instance, pixel) step, the gated alpha
+and the recurrence, in csrc/blend_common.cuh; their plain versions share
+its PyTorch twin, `chunk_walk`.
+
+The per-Gaussian reduction of K2's per-instance rows (`segment_sum`) is
+torch code, as it is XLA code in the JAX package: a stable sort on the
+Gaussian id (null slots keyed C) and torch.segment_reduce, so each
+Gaussian's segment is summed on its own — never as the difference of two
+global prefixes, whose rounding at ULP(global sum) breached the JAX
+package's grad gate (blend_pallas.py:574-589). Deterministic: no atomics.
 """
 from __future__ import annotations
 
@@ -63,7 +109,10 @@ LOG_HALF = float(np.float32(math.log(0.5)))   # observe, T > 0.5
 ALPHA_MIN = float(np.float32(1.0 / 255.0))
 
 # Launches of each kernel of this module: one per launch, nowhere else.
-LAUNCHES = {"blend_fwd": 0}
+LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_obs": 0}
+
+# Null slots per segment of the per-Gaussian reduction (see segment_sum).
+NULL_RUN = 256
 
 
 class BlendOut(NamedTuple):
@@ -87,6 +136,45 @@ def pixel_coords(tiles: torch.Tensor, tile: int, grid_x: int):
     px = (tiles[:, None] % grid_x) * tile + lane % tile
     py = (tiles[:, None] // grid_x) * tile + lane // tile
     return px.float(), py.float()
+
+
+class ChunkWalk(NamedTuple):
+    """One batch of chunks walked at their tiles' pixels, (n, chunk, P)."""
+    dx: torch.Tensor          # mean minus pixel
+    dy: torch.Tensor
+    G: torch.Tensor           # exp(min(power, 0))
+    alpha: torch.Tensor       # min(.99, op*G), 0 where gated out
+    log1m: torch.Tensor       # log1p(-alpha)
+    logT_excl: torch.Tensor   # transmittance before the instance (log)
+    done: torch.Tensor        # terminated at or before the instance
+    contribute: torch.Tensor  # alpha > 0 and not done
+
+
+def chunk_walk(gc: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+               logT0: torch.Tensor, done0: torch.Tensor, *, width: int,
+               height: int) -> ChunkWalk:
+    """The kernels' per-(instance, pixel) step (csrc/blend_common.cuh) for a
+    batch of chunks: gc (n, chunk, 8, 1) geometry columns, px/py (n, P)
+    pixel coordinates, the chunk-start carries logT0 (n, P) and done0 (n, P)
+    bool. The gated alpha and the log-space recurrence test = logT0 +
+    cumsum(log1p(-alpha)), written as the JAX package writes them."""
+    dx = gc[:, :, 0] - px[:, None]                                # (n, chunk, P)
+    dy = gc[:, :, 1] - py[:, None]
+    power_raw = (-0.5 * (gc[:, :, 2] * dx * dx + gc[:, :, 4] * dy * dy)
+                 - gc[:, :, 3] * dx * dy)
+    G = torch.exp(torch.clamp_max(power_raw, 0.0))
+    alpha = torch.clamp_max(gc[:, :, 5] * G, 0.99)
+    inside = ((px < width) & (py < height))[:, None]
+    gate = (power_raw <= 0.0) & (alpha >= ALPHA_MIN) & inside
+    del power_raw
+    alpha = torch.where(gate, alpha, 0.0)
+    del gate
+    log1m = torch.log1p(-alpha)
+    test = logT0[:, None] + torch.cumsum(log1m, dim=1)
+    done = done0[:, None] | (test < LOG_EPS)
+    return ChunkWalk(dx=dx, dy=dy, G=G, alpha=alpha, log1m=log1m,
+                     logT_excl=test - log1m, done=done,
+                     contribute=(alpha > 0.0) & ~done)
 
 
 def blend_fwd_plain(geom: torch.Tensor, vals: torch.Tensor,
@@ -126,83 +214,213 @@ def blend_fwd_plain(geom: torch.Tensor, vals: torch.Tensor,
             cdone[c] = done[tiles].float()
             px, py = pixel_coords(tiles, tile, grid_x)           # (n, P)
             gc = g[:, c].permute(1, 2, 0)[..., None]              # (n, chunk, 8, 1)
-            dx = gc[:, :, 0] - px[:, None]                        # (n, chunk, P)
-            dy = gc[:, :, 1] - py[:, None]
-            power_raw = (-0.5 * (gc[:, :, 2] * dx * dx + gc[:, :, 4] * dy * dy)
-                         - gc[:, :, 3] * dx * dy)
-            alpha = torch.clamp_max(
-                gc[:, :, 5] * torch.exp(torch.clamp_max(power_raw, 0.0)), 0.99)
-            inside = ((px < width) & (py < height))[:, None]
-            gate = (power_raw <= 0.0) & (alpha >= ALPHA_MIN) & inside
-            alpha = torch.where(gate, alpha, 0.0)
-            del dx, dy, power_raw, gate
-            log1m = torch.log1p(-alpha)
-            test = logT[tiles][:, None] + torch.cumsum(log1m, dim=1)
-            dn = done[tiles][:, None] | (test < LOG_EPS)
-            contribute = (alpha > 0.0) & ~dn
-            logT_excl = test - log1m
-            w = torch.where(contribute, alpha * torch.exp(logT_excl), 0.0)
+            st = chunk_walk(gc, px, py, logT[tiles], done[tiles],
+                            width=width, height=height)
+            w = torch.where(st.contribute,
+                            st.alpha * torch.exp(st.logT_excl), 0.0)
             img[tiles] += torch.bmm(v[:, c].permute(1, 0, 2), w)
-            obs[c] = torch.sum(contribute & (logT_excl > LOG_HALF), dim=2,
-                               dtype=torch.int32)
-            logT[tiles] += torch.sum(torch.where(contribute, log1m, 0.0), dim=1)
-            done[tiles] = dn[:, -1]
+            obs[c] = torch.sum(st.contribute & (st.logT_excl > LOG_HALF),
+                               dim=2, dtype=torch.int32)
+            logT[tiles] += torch.sum(torch.where(st.contribute, st.log1m, 0.0),
+                                     dim=1)
+            done[tiles] = st.done[:, -1]
+            del st, w
     return FwdRaw(img=img, fT=torch.exp(logT)[:, None], clogT=clogT[:, None],
                   cdone=cdone[:, None], obs=obs[:, None])
 
 
+
+
+class BwdRaw(NamedTuple):
+    """K2's two raw outputs (the Pallas kernel's out_shape, same layout)."""
+    dgeom: torch.Tensor    # (8, I) d mx, d my, d conic a/b/c, d opacity,
+    #                        sum |d mx|, sum |d my| per instance
+    dvals: torch.Tensor    # (V, I)
+
+
+def blend_bwd_plain(geom, vals, chunk_tile, clogT, cdone, g_img, gT, fT, *,
+                    T: int, grid_x: int, width: int, height: int, tile: int,
+                    chunk: int) -> BwdRaw:
+    """K2 in plain PyTorch: the same two outputs. Walks a chunk's rank inside
+    its tile from the last down, vectorized across tiles like
+    blend_fwd_plain, rebuilding each chunk's forward from K1's carries
+    (clogT, cdone) and carrying S = fT*gT + sum of later w*u per tile. The
+    in-chunk suffix is total - inclusive cumsum, as in the JAX kernel."""
+    dev = geom.device
+    P = tile * tile
+    V = vals.shape[0]
+    n_chunks = chunk_tile.shape[0]
+    bounds = torch.searchsorted(chunk_tile,
+                                torch.arange(T + 1, dtype=chunk_tile.dtype,
+                                             device=dev))
+    n_of_tile = bounds[1:] - bounds[:-1]
+    S = fT[:, 0] * gT[:, 0]                                       # (T+1, P)
+    dgeom = torch.zeros(8, n_chunks, chunk, device=dev)
+    dvals = torch.zeros(V, n_chunks, chunk, device=dev)
+    g = geom.reshape(8, n_chunks, chunk)
+    v = vals.reshape(V, n_chunks, chunk)
+    batch = max(1, 2 ** 25 // (chunk * P))
+
+    max_rank = int(n_of_tile.max()) if T > 0 else 0
+    for r in reversed(range(max_rank)):
+        active = torch.nonzero(n_of_tile > r)[:, 0]
+        for tiles in torch.split(active, batch):
+            c = bounds[tiles] + r
+            px, py = pixel_coords(tiles, tile, grid_x)           # (n, P)
+            gc = g[:, c].permute(1, 2, 0)[..., None]              # (n, chunk, 8, 1)
+            ca, cb, cc, op = gc[:, :, 2], gc[:, :, 3], gc[:, :, 4], gc[:, :, 5]
+            st = chunk_walk(gc, px, py, clogT[c, 0], cdone[c, 0] > 0.0,
+                            width=width, height=height)
+            dx, dy, G, alpha = st.dx, st.dy, st.G, st.alpha
+            contribute = st.contribute
+            T_excl = torch.exp(st.logT_excl)
+            w = torch.where(contribute, alpha * T_excl, 0.0)
+            gt = g_img[tiles]                                     # (n, V, P)
+            u = torch.bmm(v[:, c].permute(1, 2, 0), gt)           # (n, chunk, P)
+            wu = w * u
+            total = torch.sum(wu, dim=1, keepdim=True)
+            S_after = (S[tiles][:, None] + total) - torch.cumsum(wu, dim=1)
+            dalpha = torch.where(contribute & (op * G < 0.99),
+                                 T_excl * u - S_after / (1.0 - alpha), 0.0)
+            dpower = alpha * dalpha
+            ddx = -(ca * dx + cb * dy) * dpower
+            ddy = -(cc * dy + cb * dx) * dpower
+            dgeom[:, c] = torch.stack([
+                ddx.sum(2), ddy.sum(2), (-0.5 * dx * dx * dpower).sum(2),
+                (-dx * dy * dpower).sum(2), (-0.5 * dy * dy * dpower).sum(2),
+                (G * dalpha).sum(2), ddx.abs().sum(2), ddy.abs().sum(2)])
+            dvals[:, c] = torch.bmm(w, gt.transpose(1, 2)).permute(2, 0, 1)
+            S[tiles] += total[:, 0]
+    return BwdRaw(dgeom=dgeom.reshape(8, -1), dvals=dvals.reshape(V, -1))
+
+
+def blend_obs_plain(geom: torch.Tensor, chunk_tile: torch.Tensor, *, T: int,
+                    grid_x: int, width: int, height: int, tile: int,
+                    chunk: int) -> torch.Tensor:
+    """K3 in plain PyTorch: (n_chunks, 1, chunk) int32 observe counts. They
+    depend on the geometry alone, so this is K1's plain walk with zero
+    values."""
+    return blend_fwd_plain(geom, geom.new_zeros(8, geom.shape[1]), chunk_tile,
+                           T=T, grid_x=grid_x, width=width, height=height,
+                           tile=tile, chunk=chunk).obs
+
+
 @functools.cache
-def _kernel():
-    """The C entry of csrc/blend_fwd.cu, built and loaded at first use."""
+def _kernel(name: str):
+    """The C entry of csrc/<name>.cu, built and loaded at first use."""
     from gs2m_tpu_torch import _build
 
-    fn = _build.library("blend_fwd").gs2m_blend_fwd
+    n_ptr, n_int, n_float = {"blend_fwd": (8, 7, 3), "blend_bwd": (10, 7, 2),
+                             "blend_obs": (3, 6, 3)}[name]
+    fn = getattr(_build.library(name), f"gs2m_{name}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     return fn
+
+
+def _check(kernel: str, tile: int, chunk: int, V: int, specs) -> None:
+    """Raise on what the CUDA kernels do not take: tile 16, V 8 or 16, a
+    chunk that is a multiple of 32 up to 1024, contiguous tensors of the
+    stated type and shape on the first tensor's device."""
+    if tile != 16 or V not in (8, 16) or chunk > 1024 or chunk % 32:
+        raise ValueError(f"{kernel} kernel takes tile 16, V in (8, 16) and a "
+                         f"chunk <= 1024 that is a multiple of 32; got tile "
+                         f"{tile}, V {V}, chunk {chunk}")
+    dev = specs[0][1].device
+    for name, x, dt, shape in specs:
+        if (x.device != dev or x.dtype != dt or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}")
+
+
+def _launch(name: str, *args) -> None:
+    """Call the kernel's C entry on the current stream; raise on a refused
+    launch. Pointers are given as tensors."""
+    fn = _kernel(name)
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _tile_bounds(chunk_tile: torch.Tensor, T: int) -> torch.Tensor:
+    """(T+1,) int32 first chunk of each tile (tile T: the padding chunks)."""
+    return torch.searchsorted(
+        chunk_tile, torch.arange(T + 1, dtype=torch.int32,
+                                 device=chunk_tile.device), out_int32=True)
 
 
 def _launch_blend_fwd(geom, vals, chunk_tile, *, T, grid_x, width, height,
                       tile, chunk) -> FwdRaw:
     """K1 on the card (csrc/blend_fwd.cu)."""
-    V = vals.shape[0]
-    I = geom.shape[1]
-    n_chunks = I // chunk
-    P = tile * tile
-    if tile != 16 or V not in (8, 16) or chunk > 1024:
-        raise ValueError(f"blend_fwd kernel takes tile 16, V in (8, 16) and "
-                         f"chunk <= 1024; got tile {tile}, V {V}, chunk {chunk}")
-    for name, x, dt, shape in (("geom", geom, torch.float32, (8, I)),
-                               ("vals", vals, torch.float32, (V, I)),
-                               ("chunk_tile", chunk_tile, torch.int32,
-                                (n_chunks,))):
-        if (x.device != geom.device or x.dtype != dt
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"blend_fwd: {name} must be a contiguous {dt} "
-                             f"tensor of shape {shape} on {geom.device}")
+    V, I = vals.shape[0], geom.shape[1]
+    n_chunks, P = I // chunk, tile * tile
+    _check("blend_fwd", tile, chunk, V, (
+        ("geom", geom, torch.float32, (8, I)),
+        ("vals", vals, torch.float32, (V, I)),
+        ("chunk_tile", chunk_tile, torch.int32, (n_chunks,))))
     dev = geom.device
-    bounds = torch.searchsorted(
-        chunk_tile, torch.arange(T + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
     img = torch.empty(T + 1, V, P, device=dev)
     fT = torch.empty(T + 1, 1, P, device=dev)
     clogT = torch.empty(n_chunks, 1, P, device=dev)
     cdone = torch.empty(n_chunks, 1, P, device=dev)
     obs = torch.empty(n_chunks, 1, chunk, dtype=torch.int32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            geom.data_ptr(), vals.data_ptr(),
-            bounds.data_ptr(), img.data_ptr(), fT.data_ptr(),
-            clogT.data_ptr(), cdone.data_ptr(), obs.data_ptr(),
-            T, n_chunks, chunk, V, grid_x, width, height,
-            LOG_EPS, LOG_HALF, ALPHA_MIN, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed: CUDA error {err}")
-    LAUNCHES["blend_fwd"] += 1
+    _launch("blend_fwd", geom, vals, _tile_bounds(chunk_tile, T), img, fT,
+            clogT, cdone, obs, T, n_chunks, chunk, V, grid_x, width, height,
+            LOG_EPS, LOG_HALF, ALPHA_MIN)
     return FwdRaw(img=img, fT=fT, clogT=clogT, cdone=cdone, obs=obs)
+
+
+def _launch_blend_bwd(geom, vals, chunk_tile, clogT, cdone, g_img, gT, fT, *,
+                      T, grid_x, width, height, tile, chunk) -> BwdRaw:
+    """K2 on the card (csrc/blend_bwd.cu)."""
+    V, I = vals.shape[0], geom.shape[1]
+    n_chunks, P = I // chunk, tile * tile
+    _check("blend_bwd", tile, chunk, V, (
+        ("geom", geom, torch.float32, (8, I)),
+        ("vals", vals, torch.float32, (V, I)),
+        ("chunk_tile", chunk_tile, torch.int32, (n_chunks,)),
+        ("clogT", clogT, torch.float32, (n_chunks, 1, P)),
+        ("cdone", cdone, torch.float32, (n_chunks, 1, P)),
+        ("g_img", g_img, torch.float32, (T + 1, V, P)),
+        ("gT", gT, torch.float32, (T + 1, 1, P)),
+        ("fT", fT, torch.float32, (T + 1, 1, P))))
+    dgeom = torch.empty(8, I, device=geom.device)
+    dvals = torch.empty(V, I, device=geom.device)
+    _launch("blend_bwd", geom, vals, _tile_bounds(chunk_tile, T), clogT,
+            cdone, g_img, gT, fT, dgeom, dvals, T, n_chunks, chunk, V, grid_x,
+            width, height, LOG_EPS, ALPHA_MIN)
+    return BwdRaw(dgeom=dgeom, dvals=dvals)
+
+
+def _launch_blend_obs(geom, chunk_tile, *, T, grid_x, width, height, tile,
+                      chunk) -> torch.Tensor:
+    """K3 on the card (csrc/blend_obs.cu)."""
+    I = geom.shape[1]
+    n_chunks = I // chunk
+    _check("blend_obs", tile, chunk, 8, (
+        ("geom", geom, torch.float32, (8, I)),
+        ("chunk_tile", chunk_tile, torch.int32, (n_chunks,))))
+    obs = torch.empty(n_chunks, 1, chunk, dtype=torch.int32, device=geom.device)
+    _launch("blend_obs", geom, _tile_bounds(chunk_tile, T), obs, T, n_chunks,
+            chunk, grid_x, width, height, LOG_EPS, LOG_HALF, ALPHA_MIN)
+    return obs
+
+
+def _dispatch(name: str, kernel, plain, x: torch.Tensor, *args, **kw):
+    """A kernel for a CUDA tensor (or an error), the plain version only for
+    a CPU tensor."""
+    if x.is_cuda:
+        return kernel(x, *args, **kw)
+    if x.device.type != "cpu":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return plain(x, *args, **kw)
 
 
 def blend_fwd(geom: torch.Tensor, vals: torch.Tensor, chunk_tile: torch.Tensor,
@@ -212,13 +430,33 @@ def blend_fwd(geom: torch.Tensor, vals: torch.Tensor, chunk_tile: torch.Tensor,
     (V, I), chunk_tile (n_chunks,) int32 non-decreasing. On a CUDA tensor it
     launches the kernel (or raises); the plain version runs only for tensors
     on the CPU."""
-    kw = dict(T=T, grid_x=grid_x, width=width, height=height, tile=tile,
-              chunk=chunk)
-    if geom.is_cuda:
-        return _launch_blend_fwd(geom, vals, chunk_tile, **kw)
-    if geom.device.type != "cpu":
-        raise ValueError(f"blend_fwd runs on cuda or cpu, not {geom.device}")
-    return blend_fwd_plain(geom, vals, chunk_tile, **kw)
+    return _dispatch("blend_fwd", _launch_blend_fwd, blend_fwd_plain, geom,
+                     vals, chunk_tile, T=T, grid_x=grid_x, width=width,
+                     height=height, tile=tile, chunk=chunk)
+
+
+def blend_bwd(geom, vals, chunk_tile, clogT, cdone, g_img, gT, fT, *, T: int,
+              grid_x: int, width: int, height: int, tile: int,
+              chunk: int) -> BwdRaw:
+    """K2: K1's inputs and carries (clogT, cdone, fT as K1 returns them) and
+    the per-tile cotangents g_img (T+1, V, P), gT (T+1, 1, P) -> per-instance
+    dgeom (8, I), dvals (V, I). Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    return _dispatch("blend_bwd", _launch_blend_bwd, blend_bwd_plain, geom,
+                     vals, chunk_tile, clogT, cdone, g_img, gT, fT, T=T,
+                     grid_x=grid_x, width=width, height=height, tile=tile,
+                     chunk=chunk)
+
+
+def blend_obs(geom: torch.Tensor, chunk_tile: torch.Tensor, *, T: int,
+              grid_x: int, width: int, height: int, tile: int,
+              chunk: int) -> torch.Tensor:
+    """K3: geom (8, I) -> per-instance observe counts (n_chunks, 1, chunk)
+    int32, equal to K1's obs. Kernel on CUDA tensors, plain version on CPU
+    tensors."""
+    return _dispatch("blend_obs", _launch_blend_obs, blend_obs_plain, geom,
+                     chunk_tile, T=T, grid_x=grid_x, width=width,
+                     height=height, tile=tile, chunk=chunk)
 
 
 def gather_instances(values, means2d, conics, opacities, gid, is_null):
@@ -230,6 +468,13 @@ def gather_instances(values, means2d, conics, opacities, gid, is_null):
                      values.new_zeros(C, 2), values], dim=-1).T.contiguous()
     tab = torch.index_select(src, 1, gid.long())                  # (8+V, I)
     return torch.where(is_null[None, :], 0.0, tab[:8]), tab[8:]
+
+
+def gather_geom(means2d, conics, opacities, gid, is_null):
+    """Geometry-only instance table (8, I) for the observe pass."""
+    no_values = means2d.new_zeros(means2d.shape[0], 0)
+    return gather_instances(no_values, means2d, conics, opacities, gid,
+                            is_null)[0]
 
 
 def untile(img_tiles, fT_tiles, tile_nonempty, grid_y: int, grid_x: int,
@@ -247,24 +492,126 @@ def untile(img_tiles, fT_tiles, tile_nonempty, grid_y: int, grid_x: int,
     return img, fT
 
 
-def blend_tiles(values, means2d, conics, opacities, binning: Binning,
-                height: int, width: int, tile: int, chunk: int) -> BlendOut:
-    """Forward of the JAX package's blend_tiles_pallas: values (C, V),
-    means2d (C, 2), conics (C, 3), opacities (C,) -> image (V, Hp, Wp),
-    final_T (Hp, Wp) and per-Gaussian observe counts (C,) int32."""
-    grid_y, grid_x = num_tiles(height, width, tile)
-    T = grid_y * grid_x
-    geom, vals = gather_instances(values, means2d, conics, opacities,
-                                  binning.gid, binning.is_null)
-    raw = blend_fwd(geom, vals, binning.chunk_tile, T=T, grid_x=grid_x,
-                    width=width, height=height, tile=tile, chunk=chunk)
-    img, fT = untile(raw.img, raw.fT[:, 0], binning.tile_nonempty, grid_y,
-                     grid_x, tile)
-    # Null slots add 0; spreading them over all rows (instead of their gid 0)
-    # keeps millions of no-op atomics off one address.
-    C = values.shape[0]
-    slot = torch.arange(binning.gid.shape[0], device=values.device)
+def retile(g_img, g_fT, grid_y: int, grid_x: int, tile: int):
+    """Inverse of untile for the cotangents: (V, Hp, Wp), (Hp, Wp) ->
+    contiguous (T+1, V, P), (T+1, 1, P) with a zero row for the dummy
+    tile."""
+    V = g_img.shape[0]
+    T, P = grid_y * grid_x, tile * tile
+    gi = g_img.reshape(V, grid_y, tile, grid_x, tile).permute(1, 3, 0, 2, 4)
+    gt = g_fT.reshape(grid_y, tile, grid_x, tile).permute(0, 2, 1, 3)
+    return (torch.cat([gi.reshape(T, V, P), g_img.new_zeros(1, V, P)]),
+            torch.cat([gt.reshape(T, 1, P), g_fT.new_zeros(1, 1, P)]))
+
+
+def segment_sum(per_inst: torch.Tensor, key: torch.Tensor,
+                C: int) -> torch.Tensor:
+    """Per-Gaussian sums (K, C) of per-instance rows (K, I), grouped by key
+    (I,) int32 in [0, C] (C marks null slots, which are dropped). A stable
+    sort on the key, then torch.segment_reduce: each segment is summed on
+    its own, in slot order, deterministically."""
+    I = key.shape[0]
+    # Null slots are most of the layout (~2/3 at the training cell); as one
+    # segment they would be summed by one thread of segment_reduce's kernel
+    # (0.66 s at 8.9M slots on an H100). Spread them over segments of at
+    # most NULL_RUN slots, which are dropped with the rest.
+    slot = torch.arange(I, dtype=key.dtype, device=key.device)
+    key = torch.where(key >= C, C + slot // NULL_RUN, key)
+    n_seg = C + -(-I // NULL_RUN)
+    sorted_key, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(sorted_key, torch.arange(
+        n_seg, dtype=key.dtype, device=key.device))
+    lengths = torch.diff(starts, append=starts.new_full((1,), I))
+    rows = per_inst.index_select(1, order).T.contiguous()          # (I, K)
+    # unsafe: the lengths sum to I by construction; skipping the check keeps
+    # the call free of a host sync.
+    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
+                                unsafe=True)[:C].T
+
+
+def _observe_counts(obs: torch.Tensor, binning: Binning, C: int) -> torch.Tensor:
+    """Per-instance counts (n_chunks, 1, chunk) -> per-Gaussian (C,) int32.
+    Null slots add 0; spreading them over all rows (instead of their gid 0)
+    keeps millions of no-op atomics off one address."""
+    slot = torch.arange(binning.gid.shape[0], device=obs.device)
     target = torch.where(binning.is_null, slot % C, binning.gid.long())
-    observe = torch.zeros(C, dtype=torch.int32, device=values.device).index_add_(
-        0, target, torch.where(binning.is_null, 0, raw.obs.reshape(-1)))
+    return torch.zeros(C, dtype=torch.int32, device=obs.device).index_add_(
+        0, target, torch.where(binning.is_null, 0, obs.reshape(-1)))
+
+
+class _BlendTiles(torch.autograd.Function):
+    """gather -> K1 -> untile -> observe scatter; backward retile -> K2 ->
+    per-Gaussian segment sums. The outputs are (image, final_T, observe);
+    observe is not differentiable and a missing cotangent counts as 0."""
+
+    @staticmethod
+    def forward(ctx, values, means2d, conics, opacities, abs_sink,
+                binning: Binning, height: int, width: int, tile: int,
+                chunk: int):
+        grid_y, grid_x = num_tiles(height, width, tile)
+        T = grid_y * grid_x
+        geom, vals = gather_instances(values, means2d, conics, opacities,
+                                      binning.gid, binning.is_null)
+        raw = blend_fwd(geom, vals, binning.chunk_tile, T=T, grid_x=grid_x,
+                        width=width, height=height, tile=tile, chunk=chunk)
+        img, fT = untile(raw.img, raw.fT[:, 0], binning.tile_nonempty,
+                         grid_y, grid_x, tile)
+        observe = _observe_counts(raw.obs, binning, values.shape[0])
+        ctx.mark_non_differentiable(observe)
+        ctx.save_for_backward(geom, vals, raw.clogT, raw.cdone, raw.fT)
+        ctx.binning = binning
+        ctx.dims = dict(T=T, grid_x=grid_x, width=width, height=height,
+                        tile=tile, chunk=chunk)
+        ctx.grid_y = grid_y
+        return img, fT, observe
+
+    @staticmethod
+    def backward(ctx, g_img, g_fT, _g_observe):
+        geom, vals, clogT, cdone, fT = ctx.saved_tensors
+        b, d = ctx.binning, ctx.dims
+        V = vals.shape[0]
+        Hp, Wp = ctx.grid_y * d["tile"], d["grid_x"] * d["tile"]
+        if g_img is None:
+            g_img = vals.new_zeros(V, Hp, Wp)
+        if g_fT is None:
+            g_fT = vals.new_zeros(Hp, Wp)
+        g_img_t, g_fT_t = retile(g_img, g_fT, ctx.grid_y, d["grid_x"],
+                                 d["tile"])
+        raw = blend_bwd(geom, vals, b.chunk_tile, clogT, cdone, g_img_t,
+                        g_fT_t, fT, **d)
+        C = b.gauss_present.shape[0]
+        key = torch.where(b.is_null, C, b.gid)
+        acc = segment_sum(torch.cat([raw.dvals, raw.dgeom]), key, C)  # (V+8, C)
+        return (acc[:V].T, acc[V:V + 2].T, acc[V + 2:V + 5].T, acc[V + 5],
+                acc[V + 6:V + 8].T, None, None, None, None, None)
+
+
+def blend_tiles(values, means2d, conics, opacities, binning: Binning,
+                height: int, width: int, tile: int, chunk: int,
+                m2d_abs_sink: torch.Tensor | None = None) -> BlendOut:
+    """The JAX package's blend_tiles_pallas: values (C, V), means2d (C, 2),
+    conics (C, 3), opacities (C,) -> image (V, Hp, Wp), final_T (Hp, Wp) and
+    per-Gaussian observe counts (C,) int32, differentiable in the four
+    inputs. `m2d_abs_sink` is a (C, 2) zero tensor whose gradient receives
+    the per-pixel absolute mean2d gradients (AbsGS densification)."""
+    if m2d_abs_sink is None:
+        m2d_abs_sink = means2d.new_zeros(means2d.shape[0], 2)
+    img, fT, observe = _BlendTiles.apply(values, means2d, conics, opacities,
+                                         m2d_abs_sink, binning, height, width,
+                                         tile, chunk)
     return BlendOut(image=img, final_T=fT, observe=observe)
+
+
+def observe_tiles(means2d, conics, opacities, binning: Binning, height: int,
+                  width: int, tile: int, chunk: int) -> torch.Tensor:
+    """The JAX package's observe_tiles_pallas: per-Gaussian observe counts
+    (C,) int32, equal to blend_tiles(...).observe, from the geometry alone
+    (no values, image or carries). Not differentiable."""
+    grid_y, grid_x = num_tiles(height, width, tile)
+    with torch.no_grad():
+        geom = gather_geom(means2d, conics, opacities, binning.gid,
+                           binning.is_null)
+        obs = blend_obs(geom, binning.chunk_tile, T=grid_y * grid_x,
+                        grid_x=grid_x, width=width, height=height, tile=tile,
+                        chunk=chunk)
+        return _observe_counts(obs, binning, means2d.shape[0])

@@ -20,7 +20,8 @@ def depth_to_points(depth: torch.Tensor, K: torch.Tensor,
         torch.arange(H, dtype=depth.dtype, device=depth.device),
         torch.arange(W, dtype=depth.dtype, device=depth.device), indexing="ij")
     pix = torch.stack([x * depth, y * depth, depth], dim=-1)
-    pts_cam = pix @ torch.linalg.inv(K).T
+    # inv_ex: no singularity check, which would wait for the card.
+    pts_cam = pix @ torch.linalg.inv_ex(K).inverse.T
     if c2w is None:
         return pts_cam
     return pts_cam @ c2w[:3, :3].T + c2w[:3, 3]

@@ -88,9 +88,15 @@ def _tile_index(v: torch.Tensor, tile: int, hi: int) -> torch.Tensor:
 
 
 def project(gaussians: Gaussians, camera: Camera, active_sh_degree: int,
-            opacities: torch.Tensor, tile: int = 16) -> Projected:
+            opacities: torch.Tensor, tile: int = 16,
+            with_colors: bool = True) -> Projected:
     """Vectorized preprocess over the padded capacity. `opacities` (C,)
-    tightens the tile rect to the alpha >= 1/255 ellipse (see module note)."""
+    tightens the tile rect to the alpha >= 1/255 ellipse (see module note);
+    it is index-valued there and carries no gradient. with_colors=False
+    skips the SH evaluation (colors are zeros): observe counting depends on
+    geometry and opacity alone. Differentiable in xyz, scaling, rotation and
+    the SH features through autograd; the guards above keep the culled
+    rows' gradients finite."""
     xyz = gaussians.xyz
     W, H = camera.width, camera.height
     grid_x = (W + tile - 1) // tile
@@ -121,7 +127,7 @@ def project(gaussians: Gaussians, camera: Camera, active_sh_degree: int,
     # Opacity-aware rect: q = 2*ln(255*op) bounds the Mahalanobis form at the
     # last alpha >= 1/255 pixel; +1e-3 keeps it conservative under f32, +1 px
     # covers the rect formula's one-pixel under-coverage.
-    q = 2.0 * torch.log(torch.clamp_min(opacities, 1e-12) * 255.0)
+    q = 2.0 * torch.log(torch.clamp_min(opacities.detach(), 1e-12) * 255.0)
     r_op = torch.sqrt((torch.clamp_min(q, 0.0) + 1e-3)
                       * torch.clamp_min(lambda1, 0.0))
     rect_radius = torch.minimum(radius, torch.ceil(r_op) + 1.0)
@@ -146,15 +152,22 @@ def project(gaussians: Gaussians, camera: Camera, active_sh_degree: int,
     radii = torch.where(valid, radius, 0.0).to(torch.int32)
     tiles_touched = torch.where(valid, area, 0).to(torch.int32)
 
-    # SH -> RGB with view dirs from the unclamped positions.
-    dirs = xyz - camera.cam_center[None, :]
-    dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-20)
-    colors = shlib.sh_to_rgb(active_sh_degree, gaussians.get_features, dirs)
+    if with_colors:
+        # SH -> RGB with view dirs from the unclamped positions.
+        dirs = xyz - camera.cam_center[None, :]
+        dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)
+                                 + 1e-20)
+        colors = shlib.sh_to_rgb(active_sh_degree, gaussians.get_features,
+                                 dirs)
+    else:
+        colors = xyz.new_zeros(xyz.shape[0], 3)
 
     # Culled slots get safe values so no inf/NaN reaches the blend.
     v = valid[:, None]
     means2d = torch.where(v, means2d, -1e4)
-    conic = torch.where(v, conic, conic.new_tensor([1.0, 0.0, 1.0]))
+    # (1, 0, 1), built on the device: a host tensor would be copied per view.
+    safe = (torch.arange(3, device=conic.device) != 1).to(conic.dtype)
+    conic = torch.where(v, conic, safe)
     depths = torch.where(valid, p_view[:, 2], camera.zfar)
 
     return Projected(

@@ -16,7 +16,7 @@ import torch
 from gs2m_tpu_torch.core.camera import Camera
 from gs2m_tpu_torch.core.gaussians import Gaussians
 from gs2m_tpu_torch.ops.binning import bin_gaussians
-from gs2m_tpu_torch.ops.blend import blend_tiles
+from gs2m_tpu_torch.ops.blend import blend_tiles, observe_tiles
 from gs2m_tpu_torch.ops.projection import Projected
 
 
@@ -85,13 +85,17 @@ def rasterize_from_projected(
     tile: int = 16,
     chunk: int = 256,
     instance_cap: int = 2 ** 17,
+    m2d_sink: torch.Tensor | None = None,
+    m2d_abs_sink: torch.Tensor | None = None,
 ) -> RasterOut:
     H, W = camera.height, camera.width
-    binning = bin_gaussians(proj, H, W, tile, instance_cap, chunk,
-                            opacities=opacities)
+    with torch.no_grad():  # an integer layout: nothing to differentiate
+        binning = bin_gaussians(proj, H, W, tile, instance_cap, chunk,
+                                opacities=opacities)
     values = pack_values(proj.colors, features, feature_count)
-    out = blend_tiles(values, proj.means2d, proj.conics, opacities, binning,
-                      H, W, tile, chunk)
+    means2d = proj.means2d if m2d_sink is None else proj.means2d + m2d_sink
+    out = blend_tiles(values, means2d, proj.conics, opacities, binning,
+                      H, W, tile, chunk, m2d_abs_sink=m2d_abs_sink)
 
     image = out.image[:, :H, :W]
     final_T = out.final_T[:H, :W]
@@ -103,3 +107,24 @@ def rasterize_from_projected(
                      radii=proj.radii, observe=out.observe,
                      dropped=binning.dropped,
                      num_instances=binning.num_instances)
+
+
+def observe_from_projected(
+    proj: Projected,
+    opacities: torch.Tensor,       # (C,)
+    camera: Camera,
+    tile: int = 16,
+    chunk: int = 256,
+    instance_cap: int = 2 ** 17,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-Gaussian observe counts (C,) int32 and the binning `dropped`
+    scalar, without blending any values: the multi-view trim consumes only
+    visibility bits, which depend on geometry and opacity alone. Counts
+    equal rasterize_from_projected(...).observe."""
+    H, W = camera.height, camera.width
+    with torch.no_grad():
+        binning = bin_gaussians(proj, H, W, tile, instance_cap, chunk,
+                                opacities=opacities)
+        observe = observe_tiles(proj.means2d, proj.conics, opacities, binning,
+                                H, W, tile, chunk)
+    return observe, binning.dropped

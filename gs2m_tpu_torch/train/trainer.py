@@ -1,0 +1,396 @@
+"""Staged training loop: RGB warmup -> geometry.
+
+Port of gs2m_tpu/train/trainer.py for the warmup and geometry stages: per
+iteration a random view, the staged losses (L_rgb + plane + alpha; +
+multi-view and depth-normal in the geometry stage), densification every
+100 iterations in (densify_from_iter, densify_until_iter], the multi-view
+observe trim every 1000, opacity resets, an SH degree bump every 1000, and
+growth of the instance buffer on binning overflow (`dropped`).
+
+PyTorch runs eagerly, so `make_train_step` and friends are plain functions:
+one Python call per step, autograd for the backward (the blend's backward
+is kernel K2), and the package's own Adam updating the parameters in place.
+Where the JAX package fuses the geometry step's main and nearest renders
+into one pair core (blend_pallas.py:712-936), the port takes that
+package's own non-pair branch: two render() calls. Its backward compaction
+(`compact_bwd`) has no counterpart: K2 skips chunks whose tile had
+terminated. The flag stays in PipelineConfig for cfg_args.json
+compatibility and has no effect here, like `term_cut` and `use_pallas`.
+
+Randomness: host-side choices (the view order and each step's neighbor
+view) come from a numpy Generator seeded from `seed`, as the JAX package's
+view order does; device-side draws (the multi-view pixel sample, the split
+noise) from one torch.Generator on the device seeded from `seed`. Host
+syncs happen only at the 100-iteration boundaries (overflow check,
+densification) and at the trim.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig, PipelineConfig
+from gs2m_tpu_torch.core.gaussians import Gaussians
+from gs2m_tpu_torch.data.scene import Scene
+from gs2m_tpu_torch.models import losses as L
+from gs2m_tpu_torch.models.render import count_observed, render
+from gs2m_tpu_torch.train import densify as D
+from gs2m_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
+                                        group_lrs, xyz_lr_schedule)
+
+
+def choose_neighbor(rng: np.random.Generator, table_row: np.ndarray,
+                    mask_row: np.ndarray, self_idx: int) -> tuple[int, bool]:
+    """A random valid neighbor index; the view itself when none is valid."""
+    count = int(mask_row.sum())
+    r = int(rng.integers(0, max(count, 1)))
+    return (int(table_row[r]), True) if count > 0 else (self_idx, False)
+
+
+def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
+                        opt: OptimConfig, scene: Scene, instance_cap: int,
+                        geometry_stage: bool):
+    """The per-view staged loss as a function of the parameters."""
+    use_alpha_loss = model_cfg.white_background or model_cfg.mask_gt
+    render_kw = dict(tile=pipe.tile, chunk=pipe.chunk,
+                     instance_cap=instance_cap, z_depth=pipe.z_depth,
+                     blend_metallic=model_cfg.metallic)
+
+    def view_objective(gaussians: Gaussians, params: dict, sink, abs_sink,
+                       view_idx: int, nearest_idx: int, has_nearest: bool,
+                       active_sh_degree: int,
+                       generator: torch.Generator | None = None,
+                       mv_indices: torch.Tensor | None = None):
+        cam = scene.train_cameras[view_idx]
+        gt = scene.gt_images[view_idx]
+        bg = gt.new_zeros(3)
+        g = gaussians.with_params(params)
+        pkg = render(g, cam, bg, active_sh_degree,
+                     geometry_stage=geometry_stage, sobel_normal=geometry_stage,
+                     m2d_sink=sink, m2d_abs_sink=abs_sink, **render_kw)
+
+        rgb = L.clip(pkg["render"], 0.0, 1.0)
+        Lrgb = L.rgb_loss(rgb, gt, opt.lambda_ssim)
+        loss = opt.lambda_plane * L.plane_loss(pkg["visibility_filter"],
+                                               g.get_scaling)
+        if use_alpha_loss:
+            loss = loss + opt.lambda_alpha * L.binary_cross_entropy(
+                pkg["alpha_map"], scene.alpha_masks[view_idx])
+        loss = loss + Lrgb
+
+        Lgeo = gt.new_zeros(())
+        dropped = pkg["dropped"]
+        if geometry_stage:
+            nearest_cam = scene.train_cameras[nearest_idx]
+            npkg = render(g, nearest_cam, bg, active_sh_degree,
+                          geometry_stage=True, **render_kw)
+            dropped = torch.maximum(dropped, npkg["dropped"])
+            Ldn = L.depth_normal_loss(pkg["normal_map"], pkg["sobel_map"], gt)
+            Lgeo = opt.lambda_depth_normal * Ldn
+            if has_nearest and opt.lambda_multi_view != 0.0:
+                mv = L.multi_view_loss(
+                    opt, cam, nearest_cam, pkg, npkg,
+                    scene.gray_images[view_idx], scene.gray_images[nearest_idx],
+                    False, scene.ncc_scale, generator=generator,
+                    indices=mv_indices)
+                Lgeo = Lgeo + opt.lambda_multi_view * mv.loss
+            loss = loss + Lgeo
+
+        aux = {"Lrgb": Lrgb, "Lgeo": Lgeo, "radii": pkg["radii"],
+               "observe": pkg["observe"],
+               "visibility": pkg["visibility_filter"], "dropped": dropped}
+        return loss, aux
+
+    return view_objective
+
+
+def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
+                    opt: OptimConfig, scene: Scene, instance_cap: int,
+                    geometry_stage: bool):
+    """The step of one stage: loss, gradients, densification statistics and
+    the in-place Adam update."""
+    xyz_lr_fn = xyz_lr_schedule(opt, scene.cameras_extent)
+    H = scene.train_cameras[0].height
+    W = scene.train_cameras[0].width
+    objective = make_view_objective(model_cfg, pipe, opt, scene, instance_cap,
+                                    geometry_stage)
+
+    def step(gaussians: Gaussians, opt_state: AdamState, stats: D.DensifyStats,
+             view_idx: int, nearest_idx: int, has_nearest: bool,
+             iteration: int, active_sh_degree: int,
+             generator: torch.Generator | None = None,
+             mv_indices: torch.Tensor | None = None):
+        C = gaussians.capacity
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in gaussians.params_dict().items()}
+        sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
+        abs_sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
+        loss, aux = objective(gaussians, params, sink, abs_sink, view_idx,
+                              nearest_idx, has_nearest, active_sh_degree,
+                              generator, mv_indices)
+        leaves = list(params.values()) + [sink, abs_sink]
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        stats = D.update_stats(stats, grads[-2], grads[-1], aux["visibility"],
+                               aux["radii"], aux["observe"], W, H)
+        lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
+        adam_update(gaussians.params_dict(), dict(zip(params, grads)),
+                    opt_state, lrs)
+        metrics = {"loss": loss.detach(), "Lrgb": aux["Lrgb"].detach(),
+                   "Lgeo": aux["Lgeo"].detach(), "dropped": aux["dropped"],
+                   "mv_active": int(geometry_stage and has_nearest)}
+        return gaussians, opt_state, stats, metrics
+
+    return step
+
+
+def make_observe_counter(scene: Scene, pipe: PipelineConfig,
+                         instance_cap: int):
+    """Count, per Gaussian, in how many train views it is observed (the
+    trim prunes those seen in < 2 views), with the max binning overflow
+    across views — the counts are trustworthy only when it is zero. Rides
+    the observe-only pass (count_observed, kernel K3)."""
+
+    def count(gaussians: Gaussians, active_sh_degree: int = 0):
+        del active_sh_degree  # observe counts are color-free
+        counts = torch.zeros(gaussians.capacity, dtype=torch.int32,
+                             device=gaussians.device)
+        drop = torch.zeros((), dtype=torch.int32, device=gaussians.device)
+        for cam in scene.train_cameras:
+            observe, dropped = count_observed(gaussians, cam, tile=pipe.tile,
+                                              chunk=pipe.chunk,
+                                              instance_cap=instance_cap)
+            counts += (observe > 0).to(torch.int32)
+            drop = torch.maximum(drop, dropped)
+        return counts, drop
+
+    return count
+
+
+class Trainer:
+    """Host-side orchestration: stage gates, schedules, capacity growth."""
+
+    # The (8+V, I) f32 instance tables cost ~100 MB per 2^20 instances; the
+    # JAX package's ceiling, kept.
+    MAX_INSTANCE_CAP = 2 ** 26
+
+    def __init__(self, model_cfg: ModelConfig, pipe: PipelineConfig,
+                 opt: OptimConfig, scene: Scene, seed: int = 0):
+        if model_cfg.material:
+            raise NotImplementedError(
+                "the material stage is not ported yet: ROADMAP.md Queue A, "
+                "'Material stage'")
+        self.model_cfg, self.pipe, self.opt, self.scene = model_cfg, pipe, opt, scene
+        self.device = scene.device
+
+        n0 = scene.info.points.shape[0]
+        cap = max(2 ** int(np.ceil(np.log2(max(n0 * 4, 1024)))), 1024)
+        self.gaussians = Gaussians.create(scene.info.points, scene.info.colors,
+                                          model_cfg.sh_degree, capacity=cap,
+                                          device=self.device)
+        if opt.prune_init_points:
+            self.gaussians = D.prune_init_points(self.gaussians)
+        self.opt_state = adam_init(self.gaussians.params_dict())
+        self.stats = D.DensifyStats.zeros(cap, self.device)
+        self.active_sh_degree = 0
+
+        # Chunk alignment pads every nonempty tile to a chunk multiple, so the
+        # instance buffer needs a per-tile floor on top of the per-Gaussian
+        # multiplier; rounded like the JAX package's.
+        H0, W0 = scene.train_cameras[0].height, scene.train_cameras[0].width
+        n_tiles = (-(-H0 // pipe.tile)) * (-(-W0 // pipe.tile))
+        want = int(pipe.instance_cap_mult * cap) + n_tiles * pipe.chunk
+        gran = max(64 * pipe.chunk, 2 ** 13)
+        self.instance_cap = max(-(-want // gran) * gran, 4 * pipe.chunk)
+
+        self._steps: dict[tuple, object] = {}
+        self._observe_counter = None
+        # Running max of binning drops since the last boundary check, kept
+        # on the device (no sync per step).
+        self._dropped_window = torch.zeros((), dtype=torch.int32,
+                                           device=self.device)
+        self.mv_active_count = 0
+        self.rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._view_pool: list[int] = []
+        self.iteration = 0
+        self.last_densify_info: dict | None = None
+        self.last_trim_seconds: float | None = None
+        self.last_metrics: dict | None = None   # the latest step's, on device
+        self.last_eval: dict | None = None      # set by the train app
+
+        for name, mask in (("nearest", scene.nearest_mask),
+                           ("nearby", scene.nearby_mask)):
+            n_bare = int(np.sum(~mask.any(axis=1)))
+            if n_bare:
+                print(f"[trainer] WARNING: {n_bare}/{mask.shape[0]} views have "
+                      f"no {name} camera — their multi-view losses will be "
+                      f"zero (widen the *_max_angle/_max_dist thresholds if "
+                      f"unintended)", flush=True)
+
+    # --- step dispatch ---------------------------------------------------------
+
+    def _geometry_stage(self, iteration: int) -> bool:
+        return iteration > self.opt.geometry_from_iter
+
+    def _get_step(self, geometry_stage: bool):
+        key = (geometry_stage, self.gaussians.capacity, self.instance_cap)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
+                self.model_cfg, self.pipe, self.opt, self.scene,
+                self.instance_cap, geometry_stage)
+        return self._steps[key]
+
+    def _next_view(self) -> int:
+        if not self._view_pool:
+            pool = list(range(len(self.scene.train_cameras)))
+            self.rng.shuffle(pool)
+            self._view_pool = pool
+        return self._view_pool.pop()
+
+    # --- public API ------------------------------------------------------------
+
+    def train_step(self) -> dict:
+        self.iteration += 1
+        it = self.iteration
+        if it % 1000 == 0 and self.active_sh_degree < self.gaussians.max_sh_degree:
+            self.active_sh_degree += 1
+
+        geometry_stage = self._geometry_stage(it)
+        view = self._next_view()
+        nearest, has_nearest = choose_neighbor(
+            self.rng, self.scene.nearest_table[view],
+            self.scene.nearest_mask[view], view)
+        (self.gaussians, self.opt_state, self.stats,
+         metrics) = self._get_step(geometry_stage)(
+            self.gaussians, self.opt_state, self.stats, view, nearest,
+            has_nearest, it, self.active_sh_degree, self.generator)
+
+        # No silent caps: binning overflow grows the instance buffer. The
+        # window max catches drop bursts between the boundary checks too.
+        self._dropped_window = torch.maximum(self._dropped_window,
+                                             metrics["dropped"])
+        self.mv_active_count += metrics["mv_active"]
+        if it % 100 == 0:
+            dw = int(self._dropped_window)
+            if dw > 0:
+                self._grow_instance_cap(dropped=dw)
+            self._dropped_window = torch.zeros_like(self._dropped_window)
+
+        self._maintenance(it)
+        self.last_metrics = metrics
+        return metrics
+
+    def _maintenance(self, it: int):
+        opt = self.opt
+        if it <= opt.densify_until_iter:
+            if it > opt.densify_from_iter and it % opt.densification_interval == 0:
+                self._heal_nonfinite_rows(it)
+                self._maybe_grow()
+                (self.gaussians, self.opt_state, self.stats,
+                 info) = D.densify_and_prune(
+                    self.gaussians, self.opt_state, self.stats,
+                    opt.densify_grad_threshold, opt.densify_grad_abs_threshold,
+                    opt.opacity_prune_threshold, self.scene.cameras_extent,
+                    opt.percent_dense, opt.radii2D_threshold,
+                    use_radii_threshold=it > opt.opacity_reset_interval,
+                    generator=self.generator)
+                self.last_densify_info = {k: int(v) for k, v in info.items()}
+
+        if (opt.use_multi_view_trim and it % 1000 == 0
+                and it < opt.densify_until_iter):
+            t0 = time.perf_counter()
+            if self._observe_counter is None:
+                self._observe_counter = make_observe_counter(
+                    self.scene, self.pipe, self.instance_cap)
+            counts, drop = self._observe_counter(self.gaussians,
+                                                 self.active_sh_degree)
+            drop = int(drop)
+            self.last_trim_seconds = time.perf_counter() - t0
+            if drop > 0:
+                # Overflowed binning makes the counts untrustworthy: grow the
+                # buffer and skip this trim (no silent mass-pruning).
+                self._grow_instance_cap()
+            else:
+                trim = (counts < 2) & self.gaussians.alive
+                if int(trim.sum()) < self.gaussians.num_alive:
+                    self.gaussians, self.opt_state, self.stats = D.prune_rows(
+                        self.gaussians, self.opt_state, self.stats, trim)
+
+        if it <= opt.densify_until_iter:
+            if opt.use_opacity_reduce and it % opt.opacity_reduce_interval == 0:
+                self.gaussians, self.opt_state = D.reset_opacity(
+                    self.gaussians, self.opt_state, cap=0.8)
+            if it % opt.opacity_reset_interval == 0 or (
+                    self.model_cfg.white_background
+                    and it == opt.densify_from_iter):
+                self.gaussians, self.opt_state = D.reset_opacity(
+                    self.gaussians, self.opt_state, cap=0.01)
+
+    def _grow_instance_cap(self, dropped: int | None = None):
+        """Resize the instance buffer after overflow: to demand + 15% (in
+        2^17 steps) when the drop count is known, else double."""
+        if self.instance_cap >= self.MAX_INSTANCE_CAP:
+            print(f"[trainer] WARNING: binning overflow at the maximum "
+                  f"instance cap ({self.instance_cap}); instances will be "
+                  f"dropped (farthest-in-depth last)", flush=True)
+            return
+        if dropped:
+            want = int((self.instance_cap + int(dropped)) * 1.15)
+            new_cap = -(-want // 2 ** 17) * 2 ** 17
+        else:
+            new_cap = self.instance_cap * 2
+        self.instance_cap = min(max(new_cap, self.instance_cap + 2 ** 17),
+                                self.MAX_INSTANCE_CAP)
+        self._steps.clear()
+        self._observe_counter = None
+
+    def _heal_nonfinite_rows(self, it: int):
+        """Prune rows with non-finite parameters instead of letting them
+        poison densification copies."""
+        g = self.gaussians
+        bad = ~(torch.isfinite(g.xyz).all(-1) & torch.isfinite(g.opacity).all(-1)
+                & torch.isfinite(g.scaling).all(-1)
+                & torch.isfinite(g.rotation).all(-1)
+                & torch.isfinite(g.features_dc).all(-1).all(-1)) & g.alive
+        n_bad = int(bad.sum())
+        if n_bad:
+            print(f"[trainer] WARNING: pruning {n_bad} rows with non-finite "
+                  f"parameters at iteration {it}", flush=True)
+            self.gaussians, self.opt_state, self.stats = D.prune_rows(
+                self.gaussians, self.opt_state, self.stats, bad)
+
+    def _maybe_grow(self):
+        """Double the capacity when fewer than 1/8 of the rows are free."""
+        cap = self.gaussians.capacity
+        if cap - self.gaussians.num_alive < cap // 8:
+            new_cap = cap * 2
+            self.gaussians, self.opt_state, self.stats = D.grow_capacity(
+                self.gaussians, self.opt_state, self.stats, new_cap)
+            self.instance_cap += int(self.pipe.instance_cap_mult
+                                     * (new_cap - cap)
+                                     // self.pipe.chunk * self.pipe.chunk)
+            self._steps.clear()
+            self._observe_counter = None
+
+    # --- persistence -------------------------------------------------------------
+
+    def save_snapshot(self, iteration: int):
+        """PLY snapshot of the alive Gaussians, as the render app reads it."""
+        from gs2m_tpu_torch.data.ply import save_gaussian_ply
+
+        g = self.gaussians
+        alive = g.alive.cpu().numpy()
+
+        def take(x):
+            return x.detach().cpu().numpy()[alive]
+
+        save_gaussian_ply(os.path.join(self.scene.save_dir(iteration),
+                                       "point_cloud.ply"),
+                          take(g.xyz), take(g.features_dc),
+                          take(g.features_rest), take(g.opacity),
+                          take(g.scaling), take(g.rotation), take(g.albedo),
+                          take(g.roughness), take(g.metallic))

@@ -57,6 +57,8 @@ CASES = {
     "scene_chunk256": (lambda: random_pose_scene(12, n=80, capacity=128),
                        (64, 48), 8.0, 256, 2 ** 13),
     "heavy_occlusion": (occluded_scene, (32, 32), 9.9, 64, 2 ** 12),
+    # opacity 0.995: alpha reaches the 0.99 clamp near the centers
+    "clamp": (occluded_scene, (32, 32), 9.95, 64, 2 ** 12),
     "empty_tiles": (small_cluster, (96, 80), 8.0, 64, 2 ** 11),
     "overflow": (lambda: random_pose_scene(7, n=80, capacity=128),
                  (64, 48), 8.0, 64, 6 * 64),

@@ -1,7 +1,9 @@
 """The port on the card: CUDA kernels against their plain PyTorch versions and
-the CUDA render path against the CPU one, at small shapes and at the edges
-the main path does not reach (V=8, other chunks, ragged image edges, empty
-and overflowing layouts).
+the CUDA render path against the CPU one, at small shapes: both value widths
+(V=8 as the train path's warmup and geometry stages blend, V=16 as the
+render app's material package does), the paths' chunk of 256 and other
+chunks, and edges the paths rarely reach (ragged image edges, termination,
+the 0.99 clamp, empty and overflowing layouts).
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -17,6 +19,7 @@ from gs2m_tpu_torch.ops import blend
 from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
 from gs2m_tpu_torch.ops.projection import project
 from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
+from gs2m_tpu_torch.utils.grad_gate import DEFAULT_TOL, TOLERANCES, grad_gate
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +71,8 @@ CASES = [  # (seed, n, spread, opacity, W, H, V, chunk, cap)
     (3, 2000, 1.0, 0.8, 200, 90, 8, 512, 2 ** 16),
     (4, 3000, 1.0, 0.8, 160, 120, 16, 64, 64 * 40),    # overflow
     (5, 50, 0.05, 0.8, 256, 192, 16, 256, 2 ** 12),    # mostly empty tiles
+    (6, 3000, 0.3, 6.0, 128, 96, 8, 128, 2 ** 17),     # the 0.99 alpha clamp
+    (7, 3000, 0.5, 2.0, 160, 120, 8, 256, 2 ** 16),    # train path: V=8, chunk 256
 ]
 
 
@@ -138,3 +143,112 @@ def test_binning_on_card_equals_cpu(cuda):
                         2 ** 14, 64, op.to(cuda))
     for name, a, b in zip(ref._fields, ref, got):
         assert torch.equal(b.cpu(), a), name
+
+
+def k2_inputs(case, device):
+    """K1's carries and a seeded cotangent on the card for one CASES row."""
+    seed, n, spread, opacity, W, H, V, chunk, cap = case
+    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
+                                  W, H, V, chunk, cap, device)
+    fwd = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T = kw["T"]
+    g_img = torch.randn(T + 1, V, 256, generator=gen, device=device)
+    gT = torch.randn(T + 1, 1, 256, generator=gen, device=device)
+    g_img[T] = 0.0
+    gT[T] = 0.0
+    return (geom, vals, b.chunk_tile, fwd.clogT, fwd.cdone, g_img, gT,
+            fwd.fT), b, kw
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
+def test_k2_matches_plain_version(cuda, case):
+    args, b, kw = k2_inputs(case, cuda)
+    n0 = blend.LAUNCHES["blend_bwd"]
+    ker = blend.blend_bwd(*args, **kw)
+    again = blend.blend_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["blend_bwd"] == n0 + 2
+    ref = blend.blend_bwd_plain(*args, **kw)
+    for name in ("dgeom", "dvals"):
+        a, r = getattr(ker, name), getattr(ref, name)
+        assert torch.equal(a, getattr(again, name)), name  # no atomics
+        assert bool(torch.isfinite(a).all()), name
+        # One ulp at a termination or gate edge flips a whole instance's
+        # term: per channel row, at most 1e-4 of the entries may be off.
+        scale = r.abs().amax(dim=1, keepdim=True)
+        off = (a - r).abs() > 1e-4 * scale + 1e-6
+        assert float(off.float().mean()) <= 1e-4, name
+    if case[0] == 4:
+        assert int(b.dropped) > 0
+    if case[0] == 6:
+        assert float(args[0][5].max()) > 0.99   # opacity row past the clamp
+
+
+@pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
+def test_k3_equals_plain_version_and_k1(cuda, case):
+    seed, n, spread, opacity, W, H, V, chunk, cap = case
+    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
+                                  W, H, V, chunk, cap, cuda)
+    n0 = blend.LAUNCHES["blend_obs"]
+    obs = blend.blend_obs(geom, b.chunk_tile, **kw)
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["blend_obs"] == n0 + 1
+    assert torch.equal(obs, blend.blend_fwd(geom, vals, b.chunk_tile, **kw).obs)
+    assert torch.equal(obs, blend.blend_obs_plain(geom, b.chunk_tile, **kw))
+
+
+@pytest.mark.parametrize("stage", [False, True])
+def test_render_backward_on_card_matches_cpu(cuda, stage):
+    """Leaf gradients of one render, on the card (K1, K2) and on the CPU
+    (plain versions), at the distributional gradient gate."""
+    params = scene(9, 3000)
+    grads = {}
+    for dev in ("cpu", cuda):
+        g = Gaussians.from_numpy(*params, device=dev)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in g.params_dict().items()}
+        sink = torch.zeros(g.capacity, 2, device=dev, requires_grad=True)
+        pkg = render(g.with_params(leaves), camera(144, 104, dev),
+                     torch.zeros(3, device=dev), 2, geometry_stage=stage,
+                     sobel_normal=stage, chunk=128, instance_cap=2 ** 16,
+                     m2d_abs_sink=sink)
+        loss = (pkg["render"] - 0.3).abs().mean() + pkg["depth_map"].mean()
+        if stage:
+            loss = loss + (pkg["sobel_map"] - pkg["normal_map"]).abs().mean()
+        names = list(leaves) + ["abs_sink"]
+        out = torch.autograd.grad(loss, list(leaves.values()) + [sink],
+                                  allow_unused=True)
+        grads[str(dev)] = {k: (torch.zeros(1) if v is None else v.cpu())
+                           for k, v in zip(names, out)}
+    for k, ref in grads["cpu"].items():
+        rep = grad_gate(grads["cuda"][k].numpy(), ref.numpy(),
+                        tol=TOLERANCES.get(k, DEFAULT_TOL))
+        assert rep["pass"], (k, rep)
+
+
+def test_train_steps_do_not_sync_with_the_host(cuda, tmp_path):
+    """Outside the 100-iteration boundaries a train step (warmup or
+    geometry: renders, K1/K2, losses, the reduction, Adam) never waits for
+    the card: torch's sync debug mode turns any host sync into an error."""
+    import chip_smoke
+    from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig, PipelineConfig
+    from gs2m_tpu_torch.data.scene import Scene
+    from gs2m_tpu_torch.train.trainer import Trainer
+
+    src = chip_smoke.build_train_scene(tmp_path, 3000, 96, 64, 4, 0)
+    model = ModelConfig(source_path=str(src), resolution=1)
+    opt = OptimConfig(geometry_from_iter=2, multi_view_max_angle=179.0,
+                      multi_view_max_dist=100.0, multi_view_sample_num=2000)
+    trainer = Trainer(model, PipelineConfig(chunk=64), opt,
+                      Scene(model, opt, device=cuda))
+    trainer.train_step()                      # warm up the lazy inits
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):                    # warmup, then two geometry
+            metrics = trainer.train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trainer.mv_active_count > 0
+    assert bool(torch.isfinite(metrics["loss"]))

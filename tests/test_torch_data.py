@@ -139,9 +139,13 @@ def test_scene_cameras_and_model_files(synthetic_scene, tmp_path):
     for f in ("cameras.json", "input.ply"):
         assert (tmp_path / "j" / f).read_bytes() == (tmp_path / "t" / f).read_bytes()
     assert json.loads((tmp_path / "t" / "cameras.json").read_text())[0]["id"] == 0
-    with pytest.raises(NotImplementedError):
-        TScene(TModel(source_path=synthetic_scene), load_images=True,
-               device="cpu")
+    # With the GT stacks (the training side): the same pixels as the JAX
+    # package's.
+    jl = JScene(JModel(source_path=synthetic_scene, resolution=2))
+    tl = TScene(TModel(source_path=synthetic_scene, resolution=2), device="cpu")
+    for name in ("gt_images", "alpha_masks"):
+        np.testing.assert_array_equal(getattr(tl, name).numpy(),
+                                      np.asarray(getattr(jl, name)), name)
     for it in (7, 30):
         os.makedirs(tmp_path / "pc" / f"iteration_{it}")
     assert search_max_iteration(str(tmp_path / "pc")) == 30

@@ -32,7 +32,11 @@ def test_port_has_its_modules():
                 "core/gaussians", "data/ply", "data/colmap", "data/readers",
                 "data/scene", "ops/projection", "ops/binning", "ops/blend",
                 "ops/rasterize", "ops/normals", "models/render",
-                "utils/images", "apps/render"):
+                "utils/images", "apps/render",
+                # training slice
+                "ops/knn", "ops/ssim", "ops/grid_sample", "models/losses",
+                "train/optim", "train/densify", "train/trainer",
+                "train/reporting", "utils/grad_gate", "apps/train"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 
