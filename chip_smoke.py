@@ -10,7 +10,12 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 (csrc/blend_obs.cu) against their plain PyTorch versions with
                 the stated tolerances, K2's per-Gaussian grads at the
                 check_grads gate and bit-equal across two runs; each timed by
-                CUDA events beside its bound from the run's data
+                CUDA events beside its bound from the run's data; K1's and
+                K2's launch resources (registers, spills, shared bytes,
+                blocks per SM), the shares of (instance, warp) steps their
+                cull skips and of K2's per-instance sums it skips, live
+                chunks per tile, and pass 1's share of K2 (a timing probe:
+                csrc/blend_bwd.cu built with GS2M_BWD_PASS1_ONLY)
   render path   the render app, gs2m_tpu_torch.apps.render.main, over all
                 views, and a profile of one render
   train scene   bench_train.py's operating point: 8 views at 800x600 (DTU at
@@ -49,6 +54,9 @@ HERE = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# K2's timing probe: csrc/blend_bwd.cu built to stop after pass 1 (no path
+# loads it).
+PASS1_ONLY = ("-DGS2M_BWD_PASS1_ONLY",)
 # The render-full cell: DTU's native resolution and bench.py's 500k slab.
 GAUSSIANS, WIDTH, HEIGHT, VIEWS = 500_000, 1600, 1200, 4
 # The train cell: bench_train.py's operating point (DTU at -r 2).
@@ -152,10 +160,14 @@ def time_ms(fn, runs: int) -> float:
 
 def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     """This run's work for K1's bound: bytes every live chunk must move and
-    its (instance, pixel) pairs before termination / contributing."""
+    its (instance, pixel) pairs before termination / contributing; and what
+    the kernels' warp cull and K2's reduction skip see on it: the shares of
+    (instance, warp) pairs of live chunks that the cull rectangles skip and
+    that have no contributing lane, and the live chunks per tile."""
     import torch
 
-    from gs2m_tpu_torch.ops.blend import chunk_walk, pixel_coords
+    from gs2m_tpu_torch.ops.blend import (chunk_walk, cull_rects,
+                                          pixel_coords, warp_any, warp_hits)
 
     V = raw.img.shape[1]
     P = raw.clogT.shape[-1]
@@ -163,22 +175,38 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     live = (chunk_tile < T) & ~torch.all(raw.cdone[:, 0] > 0, dim=1)
     live_idx = torch.nonzero(live)[:, 0]
     g = geom.reshape(8, n_chunks, chunk)
-    pairs = contrib = 0
+    pairs = contrib = hit_pairs = contrib_warps = 0
     for c in torch.split(live_idx, 512):
-        px, py = pixel_coords(chunk_tile[c].long(), 16, grid_x)
-        st = chunk_walk(g[:, c].permute(1, 2, 0)[..., None], px, py,
-                        raw.clogT[c, 0], raw.cdone[c, 0] > 0, width=width,
-                        height=height)
+        tiles = chunk_tile[c].long()
+        px, py = pixel_coords(tiles, 16, grid_x)
+        gc = g[:, c].permute(1, 2, 0)
+        st = chunk_walk(gc[..., None], px, py, raw.clogT[c, 0],
+                        raw.cdone[c, 0] > 0, width=width, height=height)
         inside = ((px < width) & (py < height))[:, None]
         pairs += int((~st.done & inside).sum())
         contrib += int(st.contribute.sum())
+        rects = cull_rects(gc.permute(2, 0, 1).reshape(8, -1))
+        hit_pairs += int(warp_hits(rects.T.reshape(len(c), chunk, 4), tiles,
+                                   grid_x).sum())
+        contrib_warps += int(warp_any(st.contribute).sum())
+        del st
     n_live = int(live.sum())
+    per_tile = torch.bincount(chunk_tile[live].long(), minlength=T)
+    per_tile = per_tile[per_tile > 0].double()
+    warp_pairs = max(n_live * chunk * 8, 1)
+    stats = dict(
+        culled_share=1.0 - hit_pairs / warp_pairs,
+        reduction_skipped_share=1.0 - contrib_warps / warp_pairs,
+        live_chunks_per_tile={
+            "mean": float(per_tile.mean()) if len(per_tile) else 0.0,
+            "p99": float(torch.quantile(per_tile, 0.99)) if len(per_tile) else 0.0,
+            "max": int(per_tile.max()) if len(per_tile) else 0})
     bytes_ = (n_live * chunk * (6 + V) * 4          # geometry + values read
               + n_chunks * 4                         # chunk_tile
               + (T + 1) * (V + 1) * P * 4           # img, fT
               + n_chunks * (2 * P + chunk) * 4)     # carries, obs
     flops = 20 * pairs + 2 * V * contrib
-    return bytes_, flops, pairs, contrib, n_live
+    return bytes_, flops, pairs, contrib, n_live, stats
 
 
 def bound(bytes_: float, flops: float) -> dict:
@@ -191,12 +219,45 @@ def bound(bytes_: float, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_probe(defines: tuple, args, kw):
+    """A launcher of K2 built with `defines`, on K2's inputs `args`. Called
+    through the C entry, not the wrapper, so it is not counted in
+    LAUNCHES."""
+    import ctypes
+
+    import torch
+
+    from gs2m_tpu_torch import _build
+    from gs2m_tpu_torch.ops.blend import ALPHA_MIN, LOG_EPS, _tile_bounds
+
+    fn = _build.library("blend_bwd", defines).gs2m_blend_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    geom, vals, chunk_tile, clogT, cdone, g_img, gT, fT = args
+    V, I = vals.shape
+    T, chunk = kw["T"], kw["chunk"]
+    dgeom = torch.empty(8, I, device="cuda")
+    dvals = torch.empty(V, I, device="cuda")
+    ptrs = [t.data_ptr() for t in (geom, vals, _tile_bounds(chunk_tile, T),
+                                   clogT, cdone, g_img, gT, fT, dgeom, dvals)]
+
+    def launch():
+        err = fn(*ptrs, T, I // chunk, chunk, V, kw["grid_x"], kw["width"],
+                 kw["height"], LOG_EPS, ALPHA_MIN,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"K2 probe {defines}: CUDA error {err}")
+    return launch
+
+
 def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int):
     """K1 against its plain version on the binning of one view, with the
     value width (V) that `feature_count` gives; returns (report, context)
     where the context carries the binning and K1's outputs to K2 and K3."""
     import torch
 
+    from gs2m_tpu_torch.ops import blend
     from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
     from gs2m_tpu_torch.ops.blend import (LAUNCHES, blend_fwd,
                                           blend_fwd_plain, gather_instances)
@@ -267,14 +328,17 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int):
     ms = time_ms(lambda: blend_fwd(geom, vals, binning.chunk_tile, **kw), 20)
     plain_ms = time_ms(lambda: blend_fwd_plain(geom, vals, binning.chunk_tile,
                                                **kw), 3)
-    bytes_, flops, pairs, contrib, n_live = k1_work(
+    bytes_, flops, pairs, contrib, n_live, stats = k1_work(
         geom, ker, binning.chunk_tile, T=T, grid_x=grid_x, width=W, height=H,
         chunk=chunk)
     report.update(ms=ms, plain_ms=plain_ms, live_pairs=pairs,
                   contributing_pairs=contrib, live_chunks=n_live,
-                  max_abs_err=max_err, **bound(bytes_, flops))
+                  max_abs_err=max_err, **bound(bytes_, flops),
+                  culled_share=stats["culled_share"],
+                  live_chunks_per_tile=stats["live_chunks_per_tile"],
+                  resources=blend.kernel_info("blend_fwd", vals.shape[0], chunk))
     ctx = dict(geom=geom, vals=vals, binning=binning, kw=kw, k1=ker,
-               pairs=pairs, contrib=contrib, n_live=n_live)
+               pairs=pairs, contrib=contrib, n_live=n_live, stats=stats)
     return report, ctx
 
 
@@ -287,7 +351,8 @@ def k2_phase(ctx: dict) -> dict:
     import torch
 
     from gs2m_tpu_torch.ops.blend import (LAUNCHES, blend_bwd,
-                                          blend_bwd_plain, segment_sum)
+                                          blend_bwd_plain, kernel_info,
+                                          segment_sum)
     from gs2m_tpu_torch.utils.grad_gate import grad_gate
 
     geom, vals, b, kw, k1 = (ctx[k] for k in ("geom", "vals", "binning",
@@ -353,7 +418,15 @@ def k2_phase(ctx: dict) -> dict:
               + n_tiles * (V + 2) * P * 4 + n_chunks * 4
               + n_chunks * chunk * (8 + V) * 4)
     flops = 20 * pairs + (4 * V + 40 + 8 + V) * contrib
-    report.update(ms=ms, plain_ms=plain_ms, **bound(bytes_, flops))
+    # Pass 1's share: K2 built to stop after its first walk.
+    pass1_ms = time_ms(k2_probe(PASS1_ONLY, args, kw), 20)
+    stats = ctx["stats"]
+    report.update(ms=ms, plain_ms=plain_ms, **bound(bytes_, flops),
+                  culled_share=stats["culled_share"],
+                  reduction_skipped_share=stats["reduction_skipped_share"],
+                  live_chunks_per_tile=stats["live_chunks_per_tile"],
+                  pass1_ms=pass1_ms, pass1_share=pass1_ms / ms,
+                  resources=kernel_info("blend_bwd", V, chunk))
     return report
 
 
@@ -496,8 +569,9 @@ def main(argv=None) -> None:
     print(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = _build.build()
-    print(f"[smoke] built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    libs = _build.build([*_build.sources(), ("blend_bwd", PASS1_ONLY)])
+    print(f"[smoke] built {sorted(map(str, libs))} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # --- phase 2: scene -------------------------------------------------------
     root = HERE / "build" / "smoke"

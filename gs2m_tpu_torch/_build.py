@@ -4,8 +4,10 @@ Each source compiles with nvcc for sm_90a into its own shared library with a
 plain C interface, loaded with ctypes. Libraries are cached under
 build/kernels/ beside the package, named by a hash of the source, the
 shared headers (csrc/*.cuh) and the flags, so an edited source or header
-rebuilds and an unchanged one is reused.
-`build()` starts one nvcc per source, all at once.
+rebuilds and an unchanged one is reused. A kernel may also be built with
+preprocessor defines into a library of its own (chip_smoke.py's timing
+probes of K2); the paths load only the plain builds.
+`build()` starts one nvcc per library, all at once.
 """
 from __future__ import annotations
 
@@ -33,12 +35,13 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     # The shared headers are part of every source's hash: editing one
     # rebuilds every kernel that may include it.
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
                                              *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join([*NVCC_FLAGS, *defines])
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -46,33 +49,40 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile the named sources (default: all) that are not built yet, one
-    nvcc process each, started together. Returns name -> library path."""
-    names = sources() if names is None else names
-    targets = {n: _target(n) for n in names}
+def build(kernels: list | None = None) -> dict:
+    """Compile the given kernels (default: every source) that are not built
+    yet, one nvcc process each, started together. A kernel is a source name,
+    or (name, defines) for a build of that source with preprocessor defines
+    such as "-DNAME=1". Returns kernel -> library path."""
+    kernels = sources() if kernels is None else kernels
+    targets = {k: _target(*((k,) if isinstance(k, str) else k))
+               for k in kernels}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n, so in targets.items():
+    for k, so in targets.items():
         if so.exists():
             continue
+        name, defines = (k, ()) if isinstance(k, str) else k
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[k] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
-    for n, (proc, tmp) in procs.items():
+    for k, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{n}:\n{out}")
+            failed.append(f"{k}:\n{out}")
         else:
-            os.replace(tmp, targets[n])  # atomic: never a partial file
+            os.replace(tmp, targets[k])  # atomic: never a partial file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets
 
 
 @functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built with `defines`), built
+    first if needed."""
+    kernel = (name, defines) if defines else name
+    return ctypes.CDLL(str(build([kernel])[kernel]))

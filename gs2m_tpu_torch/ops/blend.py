@@ -22,21 +22,31 @@ and skips chunks whose tile had fully terminated.
 
 Design. The TPU walks the chunks as one sequential grid and carries the
 tile state in VMEM scratch; on Hopper blocks run in parallel in no order,
-so ONE BLOCK OWNS ONE TILE (256 threads, one per pixel) and loops over the
-tile's contiguous chunk range [bounds[t], bounds[t+1]) (chunk_tile never
-decreases). Each chunk's geometry (6 of the 8 rows) and values are staged
-in shared memory (24 KB at V=16, chunk 256) and every thread walks the
-instances in order with the log-space recurrence written as the JAX
+so ONE BLOCK OWNS ONE TILE (256 threads, one per pixel, each warp an 8x4
+pixel block) and loops over the tile's contiguous chunk range
+[bounds[t], bounds[t+1]) (chunk_tile never decreases). Every thread walks
+the instances in order with the log-space recurrence written as the JAX
 package writes it — test = logT0 + running sum, logT_excl = test - log1m —
 not as a running product, so termination edges fall where the reference's
-do. Accumulators live in registers. Observe counts are a per-warp
-__ballot_sync/__popc into a shared [8][chunk] table summed in fixed order:
-deterministic. Warps stop walking a chunk once all their inside pixels are
-done, and a chunk whose tile is done everywhere is skipped after writing
-its carries. The padding chunks of the dummy tile T only ever hold
-logT 0, done 0, obs 0: extra blocks fill them without walking them.
-Built with expf/log1pf, -fmad=false and no fast math, so the arithmetic
-rounds like the plain PyTorch version below.
+do. Accumulators live in registers. The kernel is bound by the
+instructions of that step (expf, log1pf, expf per pair), not by bytes, and
+is built around that:
+  - exact warp cull: when a chunk is staged each instance gets a
+    conservative pixel rectangle (`cull_rects` is its twin here) and each
+    warp a bit mask of the instances that may reach its block; a warp walks
+    only those. Elsewhere alpha is 0 at every lane, and the step would add
+    log1p(-0) = -0 and change nothing, so outputs are unchanged;
+  - overlapped staging: geometry (6 of the 8 rows) and values are
+    double-buffered in shared memory, the next chunk's cp.async copies in
+    flight while this one is walked;
+  - observe counts: a __ballot_sync/__popc per walked instance into a shared
+    [8][chunk] table summed in fixed order: deterministic.
+Warps stop walking a chunk once all their inside pixels are done, and a
+chunk whose tile is done everywhere is skipped after writing its carries.
+The padding chunks of the dummy tile T only ever hold logT 0, done 0,
+obs 0: extra blocks fill them without walking them. Built with
+expf/log1pf, -fmad=false and no fast math, so the arithmetic rounds like
+the plain PyTorch version below.
 
 Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32): max(bytes / 3.35 TB/s,
 flops / 67 TFLOP/s), bytes = geometry (6 rows) and values read once for
@@ -53,18 +63,32 @@ K1's chunk-start carries, with S = fT*gT + sum of later w*u (u = g.v):
   (0 where not contributing and at the 0.99 clamp), dvals = sum_p w*g, and
   dgeom rows d mx, d my, d conic a/b/c, d opacity, sum|ddx|, sum|ddy|
   (AbsGS); a chunk whose tile was all done at its start gets zeros.
-Design. Same block/tile ownership as K1, walking the chunk range
-backwards with S and the V cotangents in registers. The TPU's in-chunk
-inclusive prefix is a triangular matmul; here each chunk is walked forward
-twice with K1's recurrence term for term (pass 1: total = sum w*u; pass 2:
-the running prefix, S_after = (S + total) - prefix), not as a reverse
-running sum or the CUDA reference's T-division, so termination and gate
-edges fall where K1's did. Per-instance outputs are sums over 256 pixels:
-warp shuffles, then a fixed-order sum of the 8 warps' partials through
-shared memory, 32 instances at a time (8 warps x 24 channels x 32 floats
-= 24 KB) — no atomics, so two runs are bit-equal. Each output column
-belongs to one chunk of one tile and is written once; the dummy tile's
-padding chunks get zeros from extra blocks.
+Design. Same block/tile ownership and warp blocks as K1, walking the chunk
+range backwards with S and the V cotangents in registers. The TPU's
+in-chunk inclusive prefix is a triangular matmul; here each chunk is walked
+forward twice with K1's recurrence term for term (pass 1: total = sum w*u;
+pass 2: the running prefix, S_after = (S + total) - prefix), not as a
+reverse running sum or the CUDA reference's T-division, so termination and
+gate edges fall where K1's did. Bound by instructions, like K1, and built
+around that:
+  - pass 1 walks only the instances K1's cull leaves the warp, and marks
+    those at which some lane had alpha > 0 before it was done; pass 2 walks
+    only the marked ones (elsewhere every live lane has alpha 0, and a done
+    lane never contributes again);
+  - per-instance outputs are sums over 256 pixels in 8+V channels. A warp
+    with no contributing lane issues no shuffle and is left out of the sum;
+    otherwise one transposed reduce-scatter (each step a lane sends half its
+    channels and keeps half: 15 shuffles at V=8, 25 at V=16, against 5 per
+    channel) and a fixed-order sum of the contributing warps through shared
+    memory, 32 instances per barrier (double-buffered partials: 8 warps x
+    (8+V) channels x 32 x 2 = 32 or 48 KB) — no atomics, so two runs are
+    bit-equal;
+  - the chunk's rows are staged into one shared buffer with cp.async; a
+    second buffer that loads the next chunk during the walk measured no
+    faster (the 2-3 resident blocks per SM hide the loads), so K2 has one
+    layout.
+Each output column belongs to one chunk of one tile and is written once;
+the dummy tile's padding chunks get zeros from extra blocks.
 Bound: bytes = geometry (6 rows), values and carries of the live chunks,
 the tiles' cotangents, fT and gT read once + dgeom/dvals (8+V rows of all
 I slots) written once; flops = what the function needs, not the kernel's
@@ -229,6 +253,63 @@ def blend_fwd_plain(geom: torch.Tensor, vals: torch.Tensor,
                   cdone=cdone[:, None], obs=obs[:, None])
 
 
+# K1's and K2's warp cull (csrc/blend_common.cuh): the Q-form widening and
+# the margins on q and in pixels.
+CULL_GAMMA, CULL_Q_MARGIN, CULL_PX_MARGIN = 1e-6, 1e-3, 1.0
+
+
+def cull_rects(geom: torch.Tensor) -> torch.Tensor:
+    """(4, I) f32 pixel rectangles (x0, x1, y0, y1), closed, outside which
+    chunk_walk's gate is closed for each instance of geom (8, I): the PyTorch
+    twin of csrc/blend_common.cuh::cull_rect, in the same double arithmetic.
+    The gate needs Q = a dx^2 + 2b dx dy + c dy^2 <= q = 2 ln(op/alpha_min);
+    f32 rounding moves Q by at most CULL_GAMMA * (a dx^2 + c dy^2 + 2|b dx
+    dy|), so the rectangle bounds the widened form a(1-g), c(1-g), |b|(1+g),
+    plus CULL_Q_MARGIN on q and CULL_PX_MARGIN pixels. op < alpha_min gives
+    an empty rectangle (+inf, -inf); a non-finite input or a form that is not
+    positive definite gives no cull (-inf, +inf)."""
+    mx, my, a, b, c, op = geom[:6].double()
+    g = CULL_GAMMA
+    A, C, B = a * (1.0 - g), c * (1.0 - g), b.abs() * (1.0 + g)
+    det = A * C - B * B
+    q = torch.clamp_min(2.0 * torch.log(op / ALPHA_MIN), 0.0) + CULL_Q_MARGIN
+    ex = torch.sqrt(q * C / det) + CULL_PX_MARGIN
+    ey = torch.sqrt(q * A / det) + CULL_PX_MARGIN
+    keep_all = ~((det > 0) & (A > 0) & torch.isfinite(ex) & torch.isfinite(ey)
+                 & torch.isfinite(mx) & torch.isfinite(my))
+    empty = op < ALPHA_MIN
+    inf = torch.full_like(mx, math.inf)
+    lo = lambda x: torch.where(empty, inf, torch.where(keep_all, -inf, x))
+    hi = lambda x: torch.where(empty, -inf, torch.where(keep_all, inf, x))
+    return torch.stack([lo(mx - ex), hi(mx + ex), lo(my - ey),
+                        hi(my + ey)]).float()
+
+
+# Each warp of K1 and K2 is an 8x4 pixel block of the 16x16 tile: warp w
+# covers x in [8 (w % 2), +8), y in [4 (w // 2), +4).
+WARP_W, WARP_H = 8, 4
+
+
+def warp_any(x: torch.Tensor, tile: int = 16) -> torch.Tensor:
+    """(..., warps) bool: any of x (..., P) over each warp's pixel block,
+    warps in the kernels' order."""
+    x = x.reshape(*x.shape[:-1], tile // WARP_H, WARP_H, tile // WARP_W, WARP_W)
+    return x.any(dim=-1).any(dim=-2).flatten(-2)
+
+
+def warp_hits(rects: torch.Tensor, tiles: torch.Tensor, grid_x: int,
+              tile: int = 16) -> torch.Tensor:
+    """(n, chunk, warps) bool: the instance's rectangle meets the warp's
+    pixel block, for rects (n, chunk, 4) of chunks in tiles (n,) — the
+    kernels' cull masks."""
+    w = torch.arange((tile // WARP_W) * (tile // WARP_H), device=rects.device)
+    x0 = ((tiles % grid_x) * tile)[:, None] + (w % (tile // WARP_W)) * WARP_W
+    y0 = ((tiles // grid_x) * tile)[:, None] + (w // (tile // WARP_W)) * WARP_H
+    x0, y0 = x0.float()[:, None], y0.float()[:, None]             # (n, 1, warps)
+    r = rects[..., None]
+    return ((r[:, :, 1] >= x0) & (r[:, :, 0] <= x0 + (WARP_W - 1))
+            & (r[:, :, 3] >= y0) & (r[:, :, 2] <= y0 + (WARP_H - 1)))
+
 
 
 class BwdRaw(NamedTuple):
@@ -319,6 +400,23 @@ def _kernel(name: str):
     return fn
 
 
+def kernel_info(name: str, V: int, chunk: int) -> dict:
+    """K1's or K2's launch resources at (V, chunk), from the CUDA runtime:
+    registers per thread, local (spill) bytes per thread, dynamic shared
+    bytes and resident blocks per SM."""
+    from gs2m_tpu_torch import _build
+
+    fn = getattr(_build.library(name), f"gs2m_{name}_info")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    err = fn(V, chunk, out)
+    if err != 0:
+        raise RuntimeError(f"{name} info failed: CUDA error {err}")
+    return dict(zip(("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    list(out)))
+
+
 def _check(kernel: str, tile: int, chunk: int, V: int, specs) -> None:
     """Raise on what the CUDA kernels do not take: tile 16, V 8 or 16, a
     chunk that is a multiple of 32 up to 1024, contiguous tensors of the
@@ -333,6 +431,9 @@ def _check(kernel: str, tile: int, chunk: int, V: int, specs) -> None:
                 or not x.is_contiguous()):
             raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
                              f"tensor of shape {shape} on {dev}")
+        if name in ("geom", "vals") and x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned "
+                             f"(staged with 16-byte cp.async copies)")
 
 
 def _launch(name: str, *args) -> None:

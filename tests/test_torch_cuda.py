@@ -3,7 +3,8 @@ the CUDA render path against the CPU one, at small shapes: both value widths
 (V=8 as the train path's warmup and geometry stages blend, V=16 as the
 render app's material package does), the paths' chunk of 256 and other
 chunks, and edges the paths rarely reach (ragged image edges, termination,
-the 0.99 clamp, empty and overflowing layouts).
+the 0.99 clamp, empty and overflowing layouts, Gaussians that cross many
+warps and tiles, opacities next to 1/255, the largest chunks).
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -31,15 +32,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def scene(seed, n, spread=1.0, msd=2e-3, opacity=0.8, sh_degree=2):
+def scene(seed, n, spread=1.0, msd=2e-3, opacity=0.8, sh_degree=2,
+          aniso=0.5, opacity_sd=0.0):
+    """Random Gaussians: log-scales spread by `aniso`, opacity logits
+    `opacity` + N(0, opacity_sd)."""
     rng = np.random.default_rng(seed)
     K = (sh_degree + 1) ** 2
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     params = dict(
         xyz=f(n, 3) * np.float32(spread), f_dc=f(n, 1, 3),
         f_rest=0.1 * f(n, K - 1, 3),
-        scaling=np.log(np.sqrt(msd)) + 0.5 * f(n, 3),
-        rotation=f(n, 4), opacity=np.full((n, 1), opacity, np.float32),
+        scaling=np.log(np.sqrt(msd)) + aniso * f(n, 3),
+        rotation=f(n, 4),
+        opacity=np.full((n, 1), opacity, np.float32)
+        + (opacity_sd * f(n, 1) if opacity_sd else 0.0),   # no draw at sd 0
         albedo=f(n, 3), roughness=f(n, 1), metallic=f(n, 1))
     return params, np.ones(n, bool), sh_degree
 
@@ -73,14 +79,29 @@ CASES = [  # (seed, n, spread, opacity, W, H, V, chunk, cap)
     (5, 50, 0.05, 0.8, 256, 192, 16, 256, 2 ** 12),    # mostly empty tiles
     (6, 3000, 0.3, 6.0, 128, 96, 8, 128, 2 ** 17),     # the 0.99 alpha clamp
     (7, 3000, 0.5, 2.0, 160, 120, 8, 256, 2 ** 16),    # train path: V=8, chunk 256
+    # Large anisotropic Gaussians that cross many warps and tiles.
+    (10, 600, 1.0, 0.8, 160, 120, 8, 256, 2 ** 17, dict(msd=0.05, aniso=1.5)),
+    (11, 600, 1.0, 2.0, 144, 112, 16, 128, 2 ** 17, dict(msd=0.05, aniso=1.5)),
+    # Opacities next to 1/255 (logit -5.54): the cull's empty rectangles
+    # and the gate's edge at the centre pixels.
+    (12, 4000, 1.0, -5.54, 160, 120, 8, 256, 2 ** 16, dict(opacity_sd=0.01)),
+    # The largest chunks: 1024 at V=16 (one block per SM), 512 at V=16.
+    (13, 3000, 1.0, 0.8, 160, 120, 16, 1024, 2 ** 17),
+    (14, 5000, 0.3, 4.0, 96, 96, 16, 512, 2 ** 17),    # deep, terminates
 ]
+
+
+def case_scene(case):
+    """(scene params, W, H, V, chunk, cap) of one CASES row."""
+    seed, n, spread, opacity, W, H, V, chunk, cap, *extra = case
+    params = scene(seed, n, spread, opacity=opacity, **(extra[0] if extra else {}))
+    return params, W, H, V, chunk, cap
 
 
 @pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
 def test_k1_matches_plain_version(cuda, case):
-    seed, n, spread, opacity, W, H, V, chunk, cap = case
-    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
-                                  W, H, V, chunk, cap, cuda)
+    seed = case[0]
+    geom, vals, b, kw = k1_inputs(*case_scene(case), cuda)
     n0 = blend.LAUNCHES["blend_fwd"]
     ker = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
     torch.cuda.synchronize()
@@ -92,10 +113,28 @@ def test_k1_matches_plain_version(cuda, case):
         torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4, msg=name)
     for name in ("cdone", "obs"):
         assert torch.equal(getattr(ker, name), getattr(ref, name)), name
-    if seed == 2:
+    if seed in (2, 14):
         assert bool((ker.cdone > 0).any())
     if seed == 4:
         assert int(b.dropped) > 0
+    if seed == 12:  # opacities on both sides of 1/255
+        op = geom[5][~b.is_null]
+        assert bool((op < blend.ALPHA_MIN).any() and (op >= blend.ALPHA_MIN).any())
+        assert bool((ker.obs > 0).any())
+
+
+def test_kernel_resources(cuda):
+    """K2 keeps two resident blocks per SM up to chunk 512 and K1 one at
+    every chunk; neither spills at the paths' chunk."""
+    for V in (8, 16):
+        for chunk in (256, 512, 1024):
+            k2 = blend.kernel_info("blend_bwd", V, chunk)
+            assert k2["blocks_per_sm"] >= (2 if chunk <= 512 else 1), (V, chunk, k2)
+            k1 = blend.kernel_info("blend_fwd", V, chunk)
+            assert k1["blocks_per_sm"] >= 1, (V, chunk, k1)
+    for name in ("blend_fwd", "blend_bwd"):
+        for V in (8, 16):
+            assert blend.kernel_info(name, V, 256)["local_bytes"] == 0, (name, V)
 
 
 def test_k1_rejects_cpu_only_shapes(cuda):
@@ -147,9 +186,8 @@ def test_binning_on_card_equals_cpu(cuda):
 
 def k2_inputs(case, device):
     """K1's carries and a seeded cotangent on the card for one CASES row."""
-    seed, n, spread, opacity, W, H, V, chunk, cap = case
-    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
-                                  W, H, V, chunk, cap, device)
+    seed, V = case[0], case[6]
+    geom, vals, b, kw = k1_inputs(*case_scene(case), device)
     fwd = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
     gen = torch.Generator(device=device).manual_seed(seed)
     T = kw["T"]
@@ -187,9 +225,7 @@ def test_k2_matches_plain_version(cuda, case):
 
 @pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
 def test_k3_equals_plain_version_and_k1(cuda, case):
-    seed, n, spread, opacity, W, H, V, chunk, cap = case
-    geom, vals, b, kw = k1_inputs(scene(seed, n, spread, opacity=opacity),
-                                  W, H, V, chunk, cap, cuda)
+    geom, vals, b, kw = k1_inputs(*case_scene(case), cuda)
     n0 = blend.LAUNCHES["blend_obs"]
     obs = blend.blend_obs(geom, b.chunk_tile, **kw)
     torch.cuda.synchronize()
