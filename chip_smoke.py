@@ -10,12 +10,13 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 (csrc/blend_obs.cu) against their plain PyTorch versions with
                 the stated tolerances, K2's per-Gaussian grads at the
                 check_grads gate and bit-equal across two runs; each timed by
-                CUDA events beside its bound from the run's data; K1's and
-                K2's launch resources (registers, spills, shared bytes,
-                blocks per SM), the shares of (instance, warp) steps their
-                cull skips and of K2's per-instance sums it skips, live
-                chunks per tile, and pass 1's share of K2 (a timing probe:
-                csrc/blend_bwd.cu built with GS2M_BWD_PASS1_ONLY)
+                CUDA events beside its bound from the run's data; the
+                kernels' launch resources (registers, spills, shared bytes,
+                blocks per SM), the shares of (instance, warp) steps the
+                cull skips, of K2's per-instance sums it skips and of K3's
+                steps and chunks its retirement skips, live chunks per tile,
+                and pass 1's share of K2 (a timing probe: csrc/blend_bwd.cu
+                built with GS2M_BWD_PASS1_ONLY)
   render path   the render app, gs2m_tpu_torch.apps.render.main, over all
                 views, and a profile of one render
   train scene   bench_train.py's operating point: 8 views at 800x600 (DTU at
@@ -25,7 +26,8 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 geometry steps, densification at two boundaries, evaluation
                 and a snapshot at the end; then the trim's observe counter
                 over the 8 views; then warmup and geometry steps timed and
-                one geometry step profiled; then the kernel phase again at
+                one geometry step profiled; then the trim counter timed,
+                profiled and split into its stages; then the kernel phase again at
                 the train path's own shapes (the trained Gaussians on view 0,
                 V=8, the trainer's chunk and instance cap)
 
@@ -163,11 +165,16 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     its (instance, pixel) pairs before termination / contributing; and what
     the kernels' warp cull and K2's reduction skip see on it: the shares of
     (instance, warp) pairs of live chunks that the cull rectangles skip and
-    that have no contributing lane, and the live chunks per tile."""
+    that have no contributing lane, and the live chunks per tile. For K3:
+    the pairs at which its output can still change (inside, not done,
+    logT_excl > LOG_HALF), and the shares of (instance, warp) steps of live
+    chunks that it walks, that the cull skips, and that it skips because
+    every lane of the warp had retired, and of live chunks it skips whole."""
     import torch
 
-    from gs2m_tpu_torch.ops.blend import (chunk_walk, cull_rects,
-                                          pixel_coords, warp_any, warp_hits)
+    from gs2m_tpu_torch.ops.blend import (LOG_HALF, LOG_RETIRE, chunk_walk,
+                                          cull_rects, pixel_coords, warp_any,
+                                          warp_hits)
 
     V = raw.img.shape[1]
     P = raw.clogT.shape[-1]
@@ -176,6 +183,7 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     live_idx = torch.nonzero(live)[:, 0]
     g = geom.reshape(8, n_chunks, chunk)
     pairs = contrib = hit_pairs = contrib_warps = 0
+    k3_pairs = k3_walked = k3_retired = k3_skipped = 0
     for c in torch.split(live_idx, 512):
         tiles = chunk_tile[c].long()
         px, py = pixel_coords(tiles, 16, grid_x)
@@ -186,10 +194,22 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
         pairs += int((~st.done & inside).sum())
         contrib += int(st.contribute.sum())
         rects = cull_rects(gc.permute(2, 0, 1).reshape(8, -1))
-        hit_pairs += int(warp_hits(rects.T.reshape(len(c), chunk, 4), tiles,
-                                   grid_x).sum())
+        hits = warp_hits(rects.T.reshape(len(c), chunk, 4), tiles, grid_x)
+        hit_pairs += int(hits.sum())
         contrib_warps += int(warp_any(st.contribute).sum())
-        del st
+        # K3: a pixel retires after the step whose test falls below
+        # LOG_RETIRE (sticky; outside pixels and done carries start retired).
+        k3_pairs += int((inside & ~st.done & (st.logT_excl > LOG_HALF)).sum())
+        ret0 = ((raw.cdone[c, 0] > 0) | (raw.clogT[c, 0] < LOG_RETIRE)
+                | ~inside[:, 0])
+        below = st.test < LOG_RETIRE
+        fell = torch.cummax(torch.cat([torch.zeros_like(below[:, :1]),
+                                       below[:, :-1]], 1).int(), 1).values > 0
+        warp_out = ~warp_any(~(ret0[:, None] | fell))   # (n, chunk, warps)
+        k3_walked += int((hits & ~warp_out).sum())
+        k3_retired += int((hits & warp_out).sum())
+        k3_skipped += int(ret0.all(1).sum())
+        del st, below, fell
     n_live = int(live.sum())
     per_tile = torch.bincount(chunk_tile[live].long(), minlength=T)
     per_tile = per_tile[per_tile > 0].double()
@@ -197,6 +217,10 @@ def k1_work(geom, raw, chunk_tile, *, T, grid_x, width, height, chunk):
     stats = dict(
         culled_share=1.0 - hit_pairs / warp_pairs,
         reduction_skipped_share=1.0 - contrib_warps / warp_pairs,
+        k3_pairs=k3_pairs, k3_chunks=n_live - k3_skipped,
+        k3_walked_share=k3_walked / warp_pairs,
+        k3_retired_share=k3_retired / warp_pairs,
+        k3_skipped_chunk_share=k3_skipped / max(n_live, 1),
         live_chunks_per_tile={
             "mean": float(per_tile.mean()) if len(per_tile) else 0.0,
             "p99": float(torch.quantile(per_tile, 0.99)) if len(per_tile) else 0.0,
@@ -432,10 +456,14 @@ def k2_phase(ctx: dict) -> dict:
 
 def k3_phase(ctx: dict) -> dict:
     """K3 against its plain version and K1's obs on the same binning:
-    equal, count for count."""
+    equal, count for count. Its bound counts the geometry of the chunks and
+    ~20 operations per pair at which the output can still change; the bound
+    over every live chunk and every live pair up to termination, which K3
+    was first held to, is printed beside it."""
     import torch
 
-    from gs2m_tpu_torch.ops.blend import LAUNCHES, blend_obs, blend_obs_plain
+    from gs2m_tpu_torch.ops.blend import (LAUNCHES, blend_obs,
+                                          blend_obs_plain, kernel_info)
 
     geom, b, kw, k1 = (ctx[k] for k in ("geom", "binning", "kw", "k1"))
     n0 = LAUNCHES["blend_obs"]
@@ -452,11 +480,25 @@ def k3_phase(ctx: dict) -> dict:
     ms = time_ms(lambda: blend_obs(geom, b.chunk_tile, **kw), 20)
     plain_ms = time_ms(lambda: blend_obs_plain(geom, b.chunk_tile, **kw), 3)
     n_chunks, chunk = b.chunk_tile.shape[0], kw["chunk"]
-    # Geometry (6 rows) of the live chunks read, obs written; ~20
-    # operations per live (instance, pixel) pair.
-    bytes_ = ctx["n_live"] * chunk * 6 * 4 + n_chunks * (chunk + 1) * 4
+    # Geometry (6 rows) read of the live chunks whose tile still has an
+    # inside pixel not retired at the chunk's start, obs written; ~20
+    # operations per (instance, pixel) pair at which the output can still
+    # change (inside, not done, logT_excl > LOG_HALF).
+    stats = ctx["stats"]
+    obs_bytes = n_chunks * (chunk + 1) * 4
+    bytes_ = stats["k3_chunks"] * chunk * 6 * 4 + obs_bytes
+    live_bytes = ctx["n_live"] * chunk * 6 * 4 + obs_bytes
     report.update(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
-                  **bound(bytes_, 20 * ctx["pairs"]))
+                  **bound(bytes_, 20 * stats["k3_pairs"]),
+                  bound_live_pairs_ms=bound(live_bytes,
+                                            20 * ctx["pairs"])["bound_ms"],
+                  k3_pairs=stats["k3_pairs"], live_pairs=ctx["pairs"],
+                  k3_chunks=stats["k3_chunks"], live_chunks=ctx["n_live"],
+                  culled_share=stats["culled_share"],
+                  retired_share=stats["k3_retired_share"],
+                  walked_share=stats["k3_walked_share"],
+                  skipped_chunk_share=stats["k3_skipped_chunk_share"],
+                  resources=kernel_info("blend_obs", 8, chunk))
     return report
 
 
@@ -537,6 +579,64 @@ def profile_call(label: str, fn, wall_ms: float) -> dict:
     for ms, n, name in rows[:15]:
         print(f"[smoke]   {ms:8.3f} ms {n:4d}x  {name}")
     return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
+
+
+def trim_phase(trainer, card: str) -> None:
+    """The trim's observe counter (train/trainer.py::make_observe_counter)
+    over the train views on the trained Gaussians: its median wall (CUDA
+    events, 5 calls after a warm-up), a profile of one call, and one call
+    split into count_observed's stages (projection, binning, the geometry
+    gather, K3, the observe scatter), each view's stages bracketed by CUDA
+    events and summed over the views."""
+    import torch
+
+    from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.train.trainer import make_observe_counter
+
+    g, pipe, cap = trainer.gaussians, trainer.pipe, trainer.instance_cap
+    cams = trainer.scene.train_cameras
+    counter = make_observe_counter(trainer.scene, pipe, cap)
+    counts, _ = counter(g)
+    ms = time_ms(lambda: counter(g), 5)
+    print(f"[smoke] trim counter: {ms:.3f} ms for {len(cams)} views (median "
+          f"of 5, CUDA events) on {card}")
+    profile_call("trim counter", lambda: counter(g), ms)
+
+    names = ("projection", "binning", "gather", "K3", "scatter")
+    split = dict.fromkeys(names, 0.0)
+    again = torch.zeros_like(counts)
+    with torch.no_grad():
+        for cam in cams:
+            H, W = cam.height, cam.width
+            grid_y, grid_x = num_tiles(H, W, pipe.tile)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            op = g.get_opacity[:, 0]
+            proj = project(g, cam, 0, op, tile=pipe.tile, with_colors=False)
+            ev[1].record()
+            b = bin_gaussians(proj, H, W, pipe.tile, cap, pipe.chunk,
+                              opacities=op)
+            ev[2].record()
+            geom = blend.gather_geom(proj.means2d, proj.conics, op, b.gid,
+                                     b.is_null)
+            ev[3].record()
+            obs = blend.blend_obs(geom, b.chunk_tile, T=grid_y * grid_x,
+                                  grid_x=grid_x, width=W, height=H,
+                                  tile=pipe.tile, chunk=pipe.chunk)
+            ev[4].record()
+            observe = blend._observe_counts(obs, b, proj.means2d.shape[0])
+            again += (observe > 0).to(torch.int32)
+            ev[5].record()
+            ev[5].synchronize()
+            for i, name in enumerate(names):
+                split[name] += ev[i].elapsed_time(ev[i + 1])
+    if not torch.equal(again, counts):
+        fail("the trim's stages, run one by one, do not give its counts")
+    print(f"[smoke] trim counter by stage, one call ({len(cams)} views, CUDA "
+          f"events; the stream's time between stage boundaries, host gaps "
+          f"included): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
 
 
 def main(argv=None) -> None:
@@ -726,6 +826,10 @@ def main(argv=None) -> None:
           f"ms/step (median of 10), CUDA events, on {card}; peak memory "
           f"{peak:.2f} GiB")
     profile_call("geometry step", lambda: one_step(True), geo_ms)
+
+    # The trim alone on the trained Gaussians, after the timed steps (its
+    # profiler session would otherwise precede them).
+    trim_phase(trainer, card)
 
     # --- phase 6: the kernels at the shapes the train path gives them ------
     # After the timed steps, so the plain versions' large buffers do not sit

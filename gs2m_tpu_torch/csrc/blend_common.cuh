@@ -6,14 +6,15 @@
 // copy keeps K3's observe counts bit-identical to K1's and K2's walks on K1's
 // termination and gate edges. Built with expf/log1pf and -fmad=false.
 //
-// cull_rect / build_cull_masks: the exact warp cull of K1 and K2. Outside an
+// cull_rect / build_cull_masks: the exact warp cull of K1, K2 and K3. Outside an
 // instance's pixel rectangle op * exp(power) < 1/255, so the gate is closed
 // there, alpha is 0 and the step adds log1pf(-0) = -0 to the running sum and
 // changes nothing else. A warp skips every instance whose rectangle misses
 // its 8x4 pixel block. ops/blend.py::cull_rects is the PyTorch twin.
 //
 // stage_rows_async: cp.async copies of a chunk's rows into shared memory (K1
-// loads the next chunk with them while it walks this one).
+// loads the next chunk with them while it walks this one; K2 and K3 stage
+// the chunk they are about to walk).
 //
 // warp_reduce_scatter: the warp sum of N channels in N - 1 shuffles: at each
 // step a lane sends half of its channels to its partner and keeps the other
@@ -74,17 +75,7 @@ __device__ __forceinline__ Step walk_step(const float* s_geom, int chunk,
 }
 
 // Stage rows [0, rows) of chunk c of a (rows_total, I) table into shared
-// [rows][chunk] (K3's synchronous staging).
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int rows, size_t I, size_t base,
-                                           int chunk, int p) {
-  for (int i = p; i < rows * chunk; i += kPixels) {
-    const int r = i / chunk;
-    dst[i] = src[r * I + base + (i - r * chunk)];
-  }
-}
-
-// The same copy as 16-byte cp.async transfers (chunk is a multiple of 32 and
+// [rows][chunk] as 16-byte cp.async transfers (chunk is a multiple of 32 and
 // the tables are 16-byte aligned, so every row of a chunk is). The caller
 // commits the group and waits for it.
 __device__ __forceinline__ void stage_rows_async(float* dst, const float* src,
@@ -111,7 +102,7 @@ __device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// K1 and K2 map a warp to an 8x4 pixel block (the tile's 8 warps as 2
+// K1, K2 and K3 map a warp to an 8x4 pixel block (the tile's 8 warps as 2
 // columns by 4 rows), a squarer block than 16x2 with a shorter perimeter for
 // the cull. Pixel index p = y * 16 + x indexes every per-pixel table.
 __device__ __forceinline__ int warp_block_x(int warp) { return (warp & 1) * 8; }

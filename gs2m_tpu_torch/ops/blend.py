@@ -98,10 +98,31 @@ per contributing pair (every other pair adds zeros). chip_smoke.py
 computes both from the run's data.
 
 K3 — csrc/blend_obs.cu, replacing gs2m_tpu/ops/blend_pallas.py::_obs_kernel
-(launched by `observe_tiles_pallas`). K1's alpha sweep and recurrence
-without values, image or carries; the same arithmetic and build flags, so
-its counts are bit-identical to K1's obs. Bound: geometry of the live
-chunks read + obs written; flops ~20 per live (instance, pixel) pair.
+(launched by `observe_tiles_pallas`). Its only output is, per instance, the
+count of contributing pixels with T > 0.5 before it. K1's alpha sweep and
+recurrence without values, image or carries; the same arithmetic and build
+flags, so its counts are bit-identical to K1's obs. Same block/tile
+ownership, warp blocks and exact warp cull as K1; the 6 geometry rows are
+staged with cp.async into one shared buffer (a second one, loading the next
+chunk during the walk, measured no faster); and one more skip:
+  - retirement: once a pixel's running test = logT0 + cum falls below
+    LOG_HALF - RETIRE_MARGIN after a walked step, no later instance can be
+    counted there, and the pixel counts as done for the warp's early exit
+    and the tile's chunk skip (which writes zeros and stages nothing).
+    Exact: log1p(-alpha) <= 0, so the f32 running sum never rises; a later
+    step's logT_excl = fl(fl(logT0 + cum) - log1m) is within a few f32
+    roundings of the previous step's test, and every magnitude is at most
+    ~14 while the pixel is not done (test >= log 1e-4, log1m >= log 0.01),
+    so the error (< 4e-6) is far below the margin. Across chunks the
+    carried logT0 + contributed equals the last test exactly while the
+    pixel is not done: its non-contributing steps have alpha 0 and add -0.
+    Termination (test < LOG_EPS) retires a pixel at the same step.
+Bound: geometry read of the live chunks whose tile still has an inside
+pixel not retired at the chunk's start, + obs written; flops ~20 per
+(instance, pixel) pair inside the image, not done and with logT_excl >
+LOG_HALF — the pairs at which the output can still change. (The bound over
+every live chunk and every live pair up to termination, which K3 was first
+held to, is printed beside it by chip_smoke.py as bound_live_pairs_ms.)
 
 The three kernels share one per-(instance, pixel) step, the gated alpha
 and the recurrence, in csrc/blend_common.cuh; their plain versions share
@@ -131,6 +152,11 @@ from gs2m_tpu_torch.ops.binning import Binning, num_tiles
 LOG_EPS = float(np.float32(math.log(1e-4)))   # termination, T < 1e-4
 LOG_HALF = float(np.float32(math.log(0.5)))   # observe, T > 0.5
 ALPHA_MIN = float(np.float32(1.0 / 255.0))
+# K3 retires a pixel once its running test falls below LOG_RETIRE: no later
+# instance can be counted there (see the K3 note above; the margin is 25x
+# the f32 rounding it covers).
+RETIRE_MARGIN = 1e-4
+LOG_RETIRE = float(np.float32(LOG_HALF - RETIRE_MARGIN))
 
 # Launches of each kernel of this module: one per launch, nowhere else.
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_obs": 0}
@@ -169,6 +195,7 @@ class ChunkWalk(NamedTuple):
     G: torch.Tensor           # exp(min(power, 0))
     alpha: torch.Tensor       # min(.99, op*G), 0 where gated out
     log1m: torch.Tensor       # log1p(-alpha)
+    test: torch.Tensor        # logT0 + running sum of log1m (log T after it)
     logT_excl: torch.Tensor   # transmittance before the instance (log)
     done: torch.Tensor        # terminated at or before the instance
     contribute: torch.Tensor  # alpha > 0 and not done
@@ -196,7 +223,7 @@ def chunk_walk(gc: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     log1m = torch.log1p(-alpha)
     test = logT0[:, None] + torch.cumsum(log1m, dim=1)
     done = done0[:, None] | (test < LOG_EPS)
-    return ChunkWalk(dx=dx, dy=dy, G=G, alpha=alpha, log1m=log1m,
+    return ChunkWalk(dx=dx, dy=dy, G=G, alpha=alpha, log1m=log1m, test=test,
                      logT_excl=test - log1m, done=done,
                      contribute=(alpha > 0.0) & ~done)
 
@@ -253,7 +280,7 @@ def blend_fwd_plain(geom: torch.Tensor, vals: torch.Tensor,
                   cdone=cdone[:, None], obs=obs[:, None])
 
 
-# K1's and K2's warp cull (csrc/blend_common.cuh): the Q-form widening and
+# The kernels' warp cull (csrc/blend_common.cuh): the Q-form widening and
 # the margins on q and in pixels.
 CULL_GAMMA, CULL_Q_MARGIN, CULL_PX_MARGIN = 1e-6, 1e-3, 1.0
 
@@ -285,7 +312,7 @@ def cull_rects(geom: torch.Tensor) -> torch.Tensor:
                         hi(my + ey)]).float()
 
 
-# Each warp of K1 and K2 is an 8x4 pixel block of the 16x16 tile: warp w
+# Each warp of the kernels is an 8x4 pixel block of the 16x16 tile: warp w
 # covers x in [8 (w % 2), +8), y in [4 (w // 2), +4).
 WARP_W, WARP_H = 8, 4
 
@@ -392,7 +419,7 @@ def _kernel(name: str):
     from gs2m_tpu_torch import _build
 
     n_ptr, n_int, n_float = {"blend_fwd": (8, 7, 3), "blend_bwd": (10, 7, 2),
-                             "blend_obs": (3, 6, 3)}[name]
+                             "blend_obs": (3, 6, 4)}[name]
     fn = getattr(_build.library(name), f"gs2m_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -401,9 +428,9 @@ def _kernel(name: str):
 
 
 def kernel_info(name: str, V: int, chunk: int) -> dict:
-    """K1's or K2's launch resources at (V, chunk), from the CUDA runtime:
+    """A kernel's launch resources at (V, chunk), from the CUDA runtime:
     registers per thread, local (spill) bytes per thread, dynamic shared
-    bytes and resident blocks per SM."""
+    bytes and resident blocks per SM. K3 ("blend_obs") ignores V."""
     from gs2m_tpu_torch import _build
 
     fn = getattr(_build.library(name), f"gs2m_{name}_info")
@@ -510,7 +537,8 @@ def _launch_blend_obs(geom, chunk_tile, *, T, grid_x, width, height, tile,
         ("chunk_tile", chunk_tile, torch.int32, (n_chunks,))))
     obs = torch.empty(n_chunks, 1, chunk, dtype=torch.int32, device=geom.device)
     _launch("blend_obs", geom, _tile_bounds(chunk_tile, T), obs, T, n_chunks,
-            chunk, grid_x, width, height, LOG_EPS, LOG_HALF, ALPHA_MIN)
+            chunk, grid_x, width, height, LOG_EPS, LOG_HALF, LOG_RETIRE,
+            ALPHA_MIN)
     return obs
 
 

@@ -4,7 +4,8 @@ the CUDA render path against the CPU one, at small shapes: both value widths
 render app's material package does), the paths' chunk of 256 and other
 chunks, and edges the paths rarely reach (ragged image edges, termination,
 the 0.99 clamp, empty and overflowing layouts, Gaussians that cross many
-warps and tiles, opacities next to 1/255, the largest chunks).
+warps and tiles, opacities next to 1/255, the largest chunks, tiles whose
+pixels all fall to T <= 0.5 early, where K3 retires them).
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -88,6 +89,11 @@ CASES = [  # (seed, n, spread, opacity, W, H, V, chunk, cap)
     # The largest chunks: 1024 at V=16 (one block per SM), 512 at V=16.
     (13, 3000, 1.0, 0.8, 160, 120, 16, 1024, 2 ** 17),
     (14, 5000, 0.3, 4.0, 96, 96, 16, 512, 2 ** 17),    # deep, terminates
+    # K3's retirement at T = 0.5: a dense stack of half-transparent splats
+    # that retires early, at many depths, with later chunks skipped whole;
+    # and tiles that retire in their first chunk at chunk 1024.
+    (15, 12000, 0.25, -1.0, 96, 96, 8, 256, 2 ** 18, dict(opacity_sd=1.0)),
+    (16, 20000, 0.3, 4.0, 96, 96, 8, 1024, 2 ** 18),
 ]
 
 
@@ -124,15 +130,18 @@ def test_k1_matches_plain_version(cuda, case):
 
 
 def test_kernel_resources(cuda):
-    """K2 keeps two resident blocks per SM up to chunk 512 and K1 one at
-    every chunk; neither spills at the paths' chunk."""
+    """K2 keeps two resident blocks per SM up to chunk 512, K3 two at every
+    chunk and K1 one; none spills at the paths' chunk."""
     for V in (8, 16):
         for chunk in (256, 512, 1024):
             k2 = blend.kernel_info("blend_bwd", V, chunk)
             assert k2["blocks_per_sm"] >= (2 if chunk <= 512 else 1), (V, chunk, k2)
             k1 = blend.kernel_info("blend_fwd", V, chunk)
             assert k1["blocks_per_sm"] >= 1, (V, chunk, k1)
-    for name in ("blend_fwd", "blend_bwd"):
+    for chunk in (256, 512, 1024):
+        k3 = blend.kernel_info("blend_obs", 8, chunk)
+        assert k3["blocks_per_sm"] >= 2, (chunk, k3)
+    for name in ("blend_fwd", "blend_bwd", "blend_obs"):
         for V in (8, 16):
             assert blend.kernel_info(name, V, 256)["local_bytes"] == 0, (name, V)
 
@@ -223,6 +232,22 @@ def test_k2_matches_plain_version(cuda, case):
         assert float(args[0][5].max()) > 0.99   # opacity row past the clamp
 
 
+def skipped_chunks(fwd, chunk_tile, kw) -> int:
+    """Chunks after a tile's first whose every inside pixel had retired
+    (done, or logT below LOG_RETIRE) at their start, from K1's carries: K3
+    skips them whole."""
+    T = kw["T"]
+    later = (chunk_tile < T) & torch.cat([
+        torch.zeros(1, dtype=torch.bool, device=chunk_tile.device),
+        chunk_tile[1:] == chunk_tile[:-1]])
+    px, py = blend.pixel_coords(chunk_tile.clamp(max=T - 1).long(), 16,
+                                kw["grid_x"])
+    outside = (px >= kw["width"]) | (py >= kw["height"])
+    retired = ((fwd.cdone[:, 0] > 0) | (fwd.clogT[:, 0] < blend.LOG_RETIRE)
+               | outside)
+    return int((later & retired.all(dim=1)).sum())
+
+
 @pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
 def test_k3_equals_plain_version_and_k1(cuda, case):
     geom, vals, b, kw = k1_inputs(*case_scene(case), cuda)
@@ -230,8 +255,39 @@ def test_k3_equals_plain_version_and_k1(cuda, case):
     obs = blend.blend_obs(geom, b.chunk_tile, **kw)
     torch.cuda.synchronize()
     assert blend.LAUNCHES["blend_obs"] == n0 + 1
-    assert torch.equal(obs, blend.blend_fwd(geom, vals, b.chunk_tile, **kw).obs)
+    fwd = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
+    assert torch.equal(obs, fwd.obs)
     assert torch.equal(obs, blend.blend_obs_plain(geom, b.chunk_tile, **kw))
+    if case[0] in (15, 16):  # the retirement rows reach their edge
+        assert skipped_chunks(fwd, b.chunk_tile, kw) > 0
+        assert bool((obs > 0).any())
+
+
+@pytest.mark.parametrize("chunk", [256, 1024])
+@pytest.mark.parametrize("seed,shuffle", [(4, False), (11, True)])
+def test_k3_at_the_half_transmittance_edge(cuda, seed, shuffle, chunk):
+    """The stacks of tests/test_torch_obs_retire.py, which leave T within a
+    few ulps of 0.5 at every pixel of one tile of a 48x48 image, through K3:
+    count for count equal to K1's obs, which walks every pixel to
+    termination with the same step and f32 adds. (The plain version is not
+    held here: torch.cumsum on the card adds in another order, so at these
+    ulp ties its counts differ from both kernels' by design.)"""
+    from test_torch_obs_retire import GRID_X, HEIGHT, TX, TY, WIDTH, stacks
+    geom = stacks(seed, shuffle)
+    n_chunks = -(-geom.shape[1] // chunk) + 1    # + the dummy tile's chunk
+    geom = torch.cat([geom, geom.new_zeros(
+        8, n_chunks * chunk - geom.shape[1])], dim=1).to(cuda)
+    T = GRID_X * (HEIGHT // 16)
+    chunk_tile = torch.full((n_chunks,), TY * GRID_X + TX, dtype=torch.int32,
+                            device=cuda)
+    chunk_tile[-1] = T
+    kw = dict(T=T, grid_x=GRID_X, width=WIDTH, height=HEIGHT, tile=16,
+              chunk=chunk)
+    obs = blend.blend_obs(geom, chunk_tile, **kw)
+    fwd = blend.blend_fwd(geom, torch.zeros(8, geom.shape[1], device=cuda),
+                          chunk_tile, **kw)
+    assert torch.equal(obs, fwd.obs)
+    assert bool((obs > 0).any())
 
 
 @pytest.mark.parametrize("stage", [False, True])

@@ -1,4 +1,4 @@
-"""K1's and K2's warp cull: the rectangle of ops/blend.py::cull_rects (the
+"""The kernels' warp cull: the rectangle of ops/blend.py::cull_rects (the
 twin of csrc/blend_common.cuh::cull_rect) holds every pixel at which
 chunk_walk's gate lets an instance in, so a warp that skips the instances
 whose rectangle misses its 8x4 block skips only steps with alpha 0.
