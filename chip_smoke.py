@@ -18,31 +18,46 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 and pass 1's share of K2 (a timing probe: csrc/blend_bwd.cu
                 built with GS2M_BWD_PASS1_ONLY)
   render path   the render app, gs2m_tpu_torch.apps.render.main, over all
-                views, and a profile of one render
+                views with --dtu: DTU's mesh preset (max depth 5, voxel
+                0.002, trunc 0.008, one cluster kept) fuses the views'
+                depths into a block-sparse TSDF, extracts, cleans and writes
+                the mesh; blocks, voxels, mesh sizes, the ms of each stage
+                and peak memory are printed; then a profile of one render
   train scene   bench_train.py's operating point: 8 views at 800x600 (DTU at
                 -r 2) on a ring, 300k points3D in its box, seeded noise GT
                 images, widened neighbor thresholds
   train path    the train app, gs2m_tpu_torch.apps.train.main: warmup then
-                geometry steps, densification at two boundaries, evaluation
-                and a snapshot at the end; then the trim's observe counter
+                geometry steps, densification at two boundaries, checkpoints
+                at 10 and 20, a profiler trace of 12..14, evaluation and a
+                snapshot at the end; a second train app resumed from the
+                iteration-10 checkpoint to 20; then the trim's observe counter
                 over the 8 views; then warmup and geometry steps timed and
                 one geometry step profiled; then the trim counter timed,
                 profiled and split into its stages; then the kernel phase again at
                 the train path's own shapes (the trained Gaussians on view 0,
                 V=8, the trainer's chunk and instance cap)
+  quality       the port's quality gate, gs2m_tpu_torch.apps.quality_gate,
+                at the JAX package's smoke scale (120x90, 8 views, 600
+                iterations, mesh at voxel 0.03): train -> render -> TSDF
+                mesh -> chamfer against the analytic sphere and test PSNR,
+                held to 1.5x the JAX package's chamfer 0.069 and 2 dB under
+                its PSNR 27.73 (BASELINE.md); then the kernel phase again at
+                the gate's own shapes (its trained Gaussians on view 0,
+                120x90, V=8, chunk 64, its trainer's instance cap)
 
 Launch counts are zeroed just before each path and read just after; every
 kernel of a path must have launched, as often as its schedule implies.
-Prints the card's name and power limit, then one JSON line of kernel
-records (one per kernel and path, from that path's kernel phase), and as
-the last line {"ok": true, "device": {...}}. Any failed
-phase exits nonzero. Needs one CUDA card:
+Prints the card's name and power limit, the smoke's total wall time, then
+one JSON line of kernel records (one per kernel and path, from that path's
+kernel phase), and as the last line {"ok": true, "device": {...}}. Any
+failed phase exits nonzero. Needs one CUDA card:
 
     python3 chip_smoke.py [--seed 0]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -65,6 +80,15 @@ GAUSSIANS, WIDTH, HEIGHT, VIEWS = 500_000, 1600, 1200, 4
 TRAIN_POINTS, TRAIN_W, TRAIN_H, TRAIN_VIEWS = 300_000, 800, 600, 8
 TRAIN_ITERS, GEOMETRY_FROM, DENSIFY_FROM, DENSIFY_EVERY = 20, 5, 5, 8
 EVAL_VIEWS = 5  # the train app evaluates the first five train views
+CHECKPOINTS, PROFILE = (10, 20), (12, 14)
+# The resumed train app's last loss against the uninterrupted run's (bit
+# for bit on the CPU, tests/test_torch_checkpoint.py).
+RESUME_RTOL = 1e-4
+# The quality phase's limits: 1.5x the JAX package's smoke chamfer (0.069)
+# and 2 dB under its test PSNR (27.73), BASELINE.md's r4 smoke gate.
+CHAMFER_MAX, TEST_PSNR_MIN = 0.10, 25.7
+# The smoke gate's test and checkpoint iterations (apps/quality_gate.py).
+QUALITY_EVALS = (200, 400, 600)
 
 
 def fail(msg: str):
@@ -639,10 +663,113 @@ def trim_phase(trainer, card: str) -> None:
           f"included): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
 
 
+@contextlib.contextmanager
+def gate_probe():
+    """While the quality gate runs: keeps its trainer (the train app's
+    return) and counts the renders its stages make outside the train steps
+    (the GT builder's rasterize_from_projected, the evaluations' and the
+    render app's render), with those that overflowed their instance cap and
+    so were rendered again. Those stages look the names up when they run;
+    the train steps bind render when train/trainer.py is imported (here,
+    before the patch) and are counted from the schedule."""
+    import gs2m_tpu_torch.train.trainer  # noqa: F401  (binds the real render)
+    from gs2m_tpu_torch.apps import train as train_app
+    from gs2m_tpu_torch.models import render as render_mod
+    from gs2m_tpu_torch.ops import rasterize
+
+    probe = {"trainer": None, "renders": 0, "overflows": 0}
+    saved = (train_app.main, render_mod.render,
+             rasterize.rasterize_from_projected)
+
+    def counted(fn, dropped):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            probe["renders"] += 1
+            probe["overflows"] += int(dropped(out) > 0)
+            return out
+        return call
+
+    def train_main(argv=None):
+        probe["trainer"] = saved[0](argv)
+        return probe["trainer"]
+
+    train_app.main = train_main
+    render_mod.render = counted(saved[1], lambda pkg: int(pkg["dropped"]))
+    rasterize.rasterize_from_projected = counted(saved[2],
+                                                 lambda out: int(out.dropped))
+    try:
+        yield probe
+    finally:
+        (train_app.main, render_mod.render,
+         rasterize.rasterize_from_projected) = saved
+
+
+def quality_path(q_out: Path, card: str, gate_flags=()):
+    """The quality gate at the JAX package's smoke scale, through
+    apps.quality_gate.main, held to its limits and to the launches its
+    schedule implies; returns (its result, its trainer, the launches)."""
+    from gs2m_tpu_torch.apps import quality_gate
+    from gs2m_tpu_torch.ops import blend
+
+    for k in blend.LAUNCHES:
+        blend.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with gate_probe() as probe:
+        q = quality_gate.main(["--out", str(q_out), "--production",
+                               "--smoke", *gate_flags])
+    q_wall = time.perf_counter() - t0
+    q_launches = dict(blend.LAUNCHES)
+    gate = probe["trainer"]
+    test = next(iter(q["metrics_test"].values()), {})
+    # What the gate's schedule launches: K1 once per GT view, once per
+    # warmup step and twice per geometry step (the view and its nearest),
+    # once per evaluated view (the first five train views and every test
+    # view at each test iteration) and once per view of the render app's
+    # two splits, plus one re-render per overflow; K2 once per step and
+    # once more where the multi-view loss was active; K3 over every train
+    # view at each trim (every 1,000 iterations).
+    n_train = len(gate.scene.train_cameras)
+    n_test = len(gate.scene.test_cameras)
+    it, opt = gate.iteration, gate.opt
+    n_geo = max(0, it - opt.geometry_from_iter)
+    n_trims = sum(1 for k in range(1000, it + 1, 1000)
+                  if opt.use_multi_view_trim and k < opt.densify_until_iter)
+    want_q = {"blend_fwd": (q["views"] + it + n_geo
+                            + len(QUALITY_EVALS) * (min(EVAL_VIEWS, n_train)
+                                                    + n_test)
+                            + n_train + n_test + probe["overflows"]),
+              "blend_bwd": it + gate.mv_active_count,
+              "blend_obs": n_trims * n_train}
+    print(f"[smoke] quality gate: {json.dumps(q)}")
+    print(f"[smoke] quality gate (smoke scale): chamfer "
+          f"{q['chamfer']['chamfer_mean']:.5f} (limit {CHAMFER_MAX}), test "
+          f"PSNR {test.get('PSNR')} (limit {TEST_PSNR_MIN}), SSIM "
+          f"{test.get('SSIM')}; train {q['train_minutes']} min, whole gate "
+          f"{q_wall:.1f} s; {probe['renders']} renders outside the steps "
+          f"({probe['overflows']} overflowed); launches {q_launches} "
+          f"(expected {want_q}) on {card}")
+    numbers = [*q["chamfer"].values(), test.get("PSNR"), test.get("SSIM")]
+    if not all(x is not None and np.isfinite(x) for x in numbers):
+        fail(f"quality gate: non-finite or missing numbers {numbers}")
+    if q["chamfer"]["chamfer_mean"] > CHAMFER_MAX or test["PSNR"] < TEST_PSNR_MIN:
+        fail("quality gate: chamfer or test PSNR outside its limit")
+    evals = [i for i, _ in q["test_psnr_trajectory"]]
+    q_ckpts = [q_out / "model" / "checkpoints" / f"ckp{i}.pkl"
+               for i in QUALITY_EVALS]
+    if (it != QUALITY_EVALS[-1] or evals != list(QUALITY_EVALS)
+            or not all(c.is_file() for c in q_ckpts)):
+        fail(f"quality gate: iteration {it}, evaluations at {evals}, "
+             f"checkpoints {[c.name for c in q_ckpts if c.is_file()]}")
+    if q_launches != want_q:
+        fail(f"quality gate launches {q_launches}, expected {want_q}")
+    return q, gate, q_launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -694,13 +821,16 @@ def main(argv=None) -> None:
     # The material-stage package's width, V=16 (feature_count 9).
     render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9)
 
-    # --- phase 4: the render app (slice 1's path) ------------------------------
+    # --- phase 4: the render app with DTU's mesh preset --------------------------
     for k in blend.LAUNCHES:
         blend.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = render_app.main(["-m", str(model_dir), "-s", str(scene_dir)])
+    out = render_app.main(["-m", str(model_dir), "-s", str(scene_dir), "--dtu"])
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(blend.LAUNCHES)
+    stats, mesh = out["views"], out["meshes"].get("train")
     if len(stats) != VIEWS:
         fail(f"render app rendered {len(stats)} views, expected {VIEWS}")
     regrowths = int(np.log2(stats[-1]["instance_cap"] / cap))
@@ -717,11 +847,23 @@ def main(argv=None) -> None:
         for f in files:
             if Image.open(f).size != (WIDTH, HEIGHT):
                 fail(f"{f.name} has size {Image.open(f).size}")
-    print(f"[smoke] render app: {wall:.2f} s for {VIEWS} views "
-          f"({wall / VIEWS * 1e3:.1f} ms/view with PNG export); "
-          f"render ms/view {[round(s['render_s'] * 1e3, 2) for s in stats]}; "
+    if mesh is None or mesh["faces"] == 0 or not mesh["finite"]:
+        fail(f"--dtu mesh is empty or not finite: {mesh}")
+    mesh_ms = sum(mesh["stage_ms"].values())
+    print(f"[smoke] render app --dtu: {wall:.2f} s for {VIEWS} views and the "
+          f"mesh ({(wall - mesh_ms / 1e3) / VIEWS * 1e3:.1f} ms/view with PNG "
+          f"export); render ms/view "
+          f"{[round(s['render_s'] * 1e3, 2) for s in stats]}; "
           f"export ms/view {[round(s['export_s'] * 1e3, 1) for s in stats]}; "
           f"instances/view {[s['num_instances'] for s in stats]}; launches {launches}")
+    print(f"[smoke] DTU-preset mesh (voxel 0.002, trunc 0.008, max depth 5, "
+          f"{VIEWS} views at {WIDTH}x{HEIGHT}): {mesh['blocks']} blocks, "
+          f"{mesh['voxels']} voxels; raw {mesh['raw_vertices']} vertices / "
+          f"{mesh['raw_faces']} faces, cleaned {mesh['vertices']} / "
+          f"{mesh['faces']}; stage ms (CUDA events on the card, host clock "
+          f"for to_host, cluster, ply_write) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in mesh["stage_ms"].items())
+          + f", total {mesh_ms:.1f}; peak memory {peak:.2f} GiB on {card}")
 
     def render_view0():
         return render(g, cam, torch.zeros(3, device=dev), 3,
@@ -741,7 +883,7 @@ def main(argv=None) -> None:
     print(f"[smoke] train scene: {TRAIN_POINTS} points, {TRAIN_VIEWS} views "
           f"at {TRAIN_W}x{TRAIN_H} in {time.perf_counter() - t0:.1f} s")
     train_model = root / "train_model"
-    argv = ["-s", str(train_dir), "-m", str(train_model), "-r", "1",
+    argv = ["-s", str(train_dir), "-r", "1",
             "--iterations", str(TRAIN_ITERS),
             "--geometry_from_iter", str(GEOMETRY_FROM),
             "--densify_from_iter", str(DENSIFY_FROM),
@@ -754,7 +896,10 @@ def main(argv=None) -> None:
     for k in blend.LAUNCHES:
         blend.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    trainer = train_app.main(argv)
+    trainer = train_app.main(
+        argv + ["-m", str(train_model),
+                "--checkpoint_iterations", *map(str, CHECKPOINTS),
+                "--profile_iterations", *map(str, PROFILE)])
     counts, trim_drop = make_observe_counter(trainer.scene, trainer.pipe,
                                              trainer.instance_cap)(
         trainer.gaussians)
@@ -795,6 +940,32 @@ def main(argv=None) -> None:
     for name, leaf in trainer.gaussians.params_dict().items():
         if not bool(torch.isfinite(leaf).all()):
             fail(f"train app: parameter {name} is not finite")
+    trace = train_model / "profile" / f"trace_{PROFILE[0]}_{PROFILE[1]}.json"
+    ckpts = [train_model / "checkpoints" / f"ckp{it}.pkl" for it in CHECKPOINTS]
+    if not trace.is_file() or not all(c.is_file() for c in ckpts):
+        fail(f"train app: missing checkpoints {ckpts} or trace {trace}")
+    t0 = time.perf_counter()
+    resumed = train_app.main(argv + ["-m", str(root / "train_resumed"),
+                                     "--start_checkpoint", str(ckpts[0])])
+    resume_wall = time.perf_counter() - t0
+    if resumed.iteration != TRAIN_ITERS or not all(
+            bool(torch.isfinite(leaf).all())
+            for leaf in resumed.gaussians.params_dict().values()):
+        fail(f"resumed train app: iteration {resumed.iteration}, parameters "
+             f"not finite")
+    resumed_loss = float(resumed.last_metrics["loss"])
+    print(f"[smoke] train app checkpoints {[c.stat().st_size for c in ckpts]} "
+          f"bytes, trace {trace.stat().st_size} bytes; resumed from "
+          f"{ckpts[0].name} to {resumed.iteration} in {resume_wall:.1f} s, "
+          f"alive {resumed.gaussians.num_alive} (uninterrupted "
+          f"{trainer.gaussians.num_alive}), last loss {resumed_loss!r} "
+          f"(uninterrupted {loss!r}, bit-equal {resumed_loss == loss})")
+    if (abs(resumed_loss - loss) > RESUME_RTOL * abs(loss)
+            or resumed.gaussians.num_alive != trainer.gaussians.num_alive):
+        fail(f"resumed train app: loss {resumed_loss!r} and alive "
+             f"{resumed.gaussians.num_alive}, uninterrupted {loss!r} and "
+             f"{trainer.gaussians.num_alive} (loss rtol {RESUME_RTOL})")
+    del resumed
 
     # Steps timed through the trainer's own step functions (no maintenance
     # inside the window), then one geometry step profiled.
@@ -840,16 +1011,31 @@ def main(argv=None) -> None:
         "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
         trainer.pipe.chunk, trainer.instance_cap, 5)
 
+    # --- phase 7: the quality gate at the JAX package's smoke scale ---------
+    q, gate, q_launches = quality_path(root / "quality", card)
+
+    # --- phase 8: the kernels at the shapes the quality path gives them ----
+    # The gate's trained Gaussians (its iteration-600 snapshot's state) on
+    # view 0 at 120x90, the steps' V=8 (feature_count 5), chunk 64 and its
+    # trainer's instance cap.
+    quality_kernels = kernel_phases(
+        "quality-smoke", gate.gaussians, gate.scene.train_cameras[0],
+        gate.pipe.chunk, gate.instance_cap, 5)
+
     # One record per kernel and path, each from the kernel phase run at that
-    # path's own shapes. K2 and K3 at the render cell (V=16) are checked
-    # above, but no ported path launches them there yet (V=16 backward is
-    # the material stage's), so they have no record here.
+    # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
+    # quality cell are checked above, but their paths do not launch them
+    # (the V=16 backward is the material stage's; the gate's trim would
+    # fire at 1,000), so they have no record here.
     replaces = {"blend_fwd": 125, "blend_bwd": 322, "blend_obs": 227}
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
             ("render-full", {"blend_fwd": render_kernels["blend_fwd"]},
-             launches)):
+             launches),
+            ("quality-smoke", {k: quality_kernels[k]
+                               for k in ("blend_fwd", "blend_bwd")},
+             q_launches)):
         for name, rep in reports.items():
             records.append({
                 "name": name, "cell": cell, "route": "cuda",
@@ -859,6 +1045,7 @@ def main(argv=None) -> None:
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                 "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
                 "bound_by": rep["bound_by"], "library_ms": None})
+    print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,338 @@
+"""Quality gate: train -> render -> TSDF mesh -> chamfer + PSNR/SSIM on a
+synthetic sphere with analytic geometry, entirely through the port.
+
+Port of scripts/run_quality_gate.py's sphere protocol, run in process (the
+train, render and metrics apps' `main`) and without the TPU retry wrapper:
+
+  1. build a noise- or smooth-textured sphere as a COLMAP scene, its GT
+     images rendered by the port (`build_sphere_scene`)
+  2. train with --eval, held-out PSNR at the test iterations and a
+     checkpoint at each (apps.train)
+  3. render + TSDF-fuse + mesh the train split (apps.render --extract_mesh)
+  4. PSNR/SSIM on both splits (apps.metrics); the chamfer of the train
+     split's cleaned mesh against the ANALYTIC unit sphere
+  5. write quality_gate.json with the JAX gate's keys
+
+--production --smoke is the JAX package's CPU smoke schedule: 120x90, 8
+views, 1,500 points, 600 iterations, checkpoints at 200/400/600, a mesh at
+voxel 0.03 / trunc 0.12 (reference: test PSNR 27.73, chamfer 0.069,
+BASELINE.md). --production alone is the full protocol: 800x600, 49 views,
+40,000 points, 30k iterations (reference: QUALITY_GATE_r05.json). The
+scene builders' pieces (`ring_camera`, `make_sphere_data`) are numpy copies
+of tests/make_synthetic_scene.py's, `sample_mesh_surface` is
+scripts/eval_dtu.py's.
+
+Usage: python -m gs2m_tpu_torch.apps.quality_gate --out <dir> \\
+           [--production [--smoke]] [--device cuda|cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def ring_camera(theta: float, dist: float = 4.0, height: float = 0.8):
+    """c2w looking at the origin from a ring; returns (R_transposed_w2c, T_w2c)."""
+    eye = np.array([dist * np.sin(theta), height, -dist * np.cos(theta)])
+    forward = -eye / np.linalg.norm(eye)           # +z view axis toward origin
+    up = np.array([0.0, -1.0, 0.0])                 # COLMAP y-down
+    right = np.cross(up, forward)
+    right /= np.linalg.norm(right)
+    true_up = np.cross(forward, right)
+    R_c2w = np.stack([right, true_up, forward], axis=1)  # columns
+    w2c_R = R_c2w.T
+    T = -w2c_R @ eye
+    return R_c2w, T
+
+
+def make_sphere_data(n_points: int = 4000, radius: float = 1.0, seed: int = 0,
+                     texture: str = "smooth"):
+    """Points ON a sphere surface; texture="noise" mixes per-point random
+    color into the smooth normal coding, so the optimizer has to densify."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n_points, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pts = (v * radius).astype(np.float32)
+    if texture == "noise":
+        cols = (0.3 + 0.3 * v
+                + 0.4 * rng.uniform(0, 1, (n_points, 3))).astype(np.float32)
+        cols = np.clip(cols, 0.0, 1.0)
+    else:
+        cols = (0.5 + 0.45 * v).astype(np.float32)  # smooth normal coding
+    return pts, cols
+
+
+def build_sphere_scene(out_dir: str, n_views: int = 10, width: int = 64,
+                       height: int = 48, n_points: int = 300, seed: int = 0,
+                       opacity_boost: float = 6.0,
+                       point_scale: float | None = None,
+                       texture: str = "smooth", instance_cap: int = 2 ** 15,
+                       sfm_fraction: float = 0.5, device=None) -> str:
+    """tests/make_synthetic_scene.build's sphere scene through the port: a
+    ring of views of a Gaussian-splat sphere, GT rendered with feature
+    count 1, chunk 64 and opacity x boost capped at 0.99, the instance cap
+    doubled until nothing drops; a noisy subset of the points as the SfM
+    cloud."""
+    from PIL import Image
+
+    from gs2m_tpu_torch.core.camera import Camera
+    from gs2m_tpu_torch.core.gaussians import Gaussians
+    from gs2m_tpu_torch.data import colmap as cm
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.ops.rasterize import (build_features,
+                                              rasterize_from_projected)
+
+    pts, cols = make_sphere_data(n_points, seed=seed, texture=texture)
+    msd = (np.full(pts.shape[0], point_scale ** 2, np.float32)
+           if point_scale is not None else None)
+    g = Gaussians.create(pts, cols, max_sh_degree=1, capacity=pts.shape[0],
+                         mean_sq_dist=msd, device=device)
+
+    fx = fy = 0.9 * width
+    os.makedirs(os.path.join(out_dir, "sparse/0"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+
+    cams = {1: cm.ColmapCamera(1, "PINHOLE", width, height,
+                               np.array([fx, fy, width / 2, height / 2],
+                                        np.float64))}
+    imgs = {}
+    for i in range(n_views):
+        R, T = ring_camera(2 * np.pi * i / n_views)
+        name = f"view_{i:03d}.png"
+        imgs[i + 1] = cm.ColmapImage(i + 1, cm.rotmat_to_qvec(R.T), T, 1, name)
+
+        cam = Camera.create(R, T, fovx=2 * np.arctan(width / (2 * fx)),
+                            fovy=2 * np.arctan(height / (2 * fy)),
+                            width=width, height=height, device=g.device)
+        with torch.no_grad():
+            opa = torch.clamp_max(g.get_opacity[:, 0] * opacity_boost, 0.99)
+            proj = project(g, cam, g.max_sh_degree, opa)
+            feats = build_features(g, cam)
+            while True:
+                out = rasterize_from_projected(
+                    proj, opa, feats, torch.zeros(3, device=g.device), cam,
+                    feature_count=1, chunk=64, instance_cap=instance_cap)
+                if int(out.dropped) == 0 or instance_cap >= 2 ** 24:
+                    break
+                instance_cap *= 2  # carried to the remaining views
+        img = np.clip(out.color.permute(1, 2, 0).cpu().numpy(), 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(out_dir, "images", name))
+
+    cm.write_cameras_binary(os.path.join(out_dir, "sparse/0/cameras.bin"), cams)
+    cm.write_images_binary(os.path.join(out_dir, "sparse/0/images.bin"), imgs)
+    rng = np.random.default_rng(seed + 1)
+    sel = rng.choice(pts.shape[0],
+                     size=max(50, int(pts.shape[0] * sfm_fraction)),
+                     replace=False)
+    noisy = pts[sel] + rng.normal(scale=0.02, size=(len(sel), 3)).astype(np.float32)
+    cm.write_points3d_binary(os.path.join(out_dir, "sparse/0/points3D.bin"),
+                             noisy.astype(np.float64), (cols[sel] * 255))
+    return out_dir
+
+
+def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray,
+                        density: float) -> np.ndarray:
+    """Vertices + regular barycentric samples at ~`density` spacing
+    (bucketed by (n1, n2) per triangle)."""
+    tri = vertices[faces]
+    v1 = tri[:, 1] - tri[:, 0]
+    v2 = tri[:, 2] - tri[:, 0]
+    l1 = np.linalg.norm(v1, axis=-1)
+    l2 = np.linalg.norm(v2, axis=-1)
+    area2 = np.linalg.norm(np.cross(v1, v2), axis=-1)
+    ok = area2 > 0
+    v1, v2, base, l1, l2, area2 = v1[ok], v2[ok], tri[ok, 0], l1[ok], l2[ok], area2[ok]
+    thr = density * np.sqrt(l1 * l2 / area2)
+    n1 = np.floor(l1 / thr).astype(np.int64)
+    n2 = np.floor(l2 / thr).astype(np.int64)
+
+    pts = [vertices]
+    key = n1 * 100_000 + n2
+    for k in np.unique(key):
+        sel = key == k
+        a, b = int(n1[sel][0]), int(n2[sel][0])
+        c = np.mgrid[:a + 1, :b + 1].astype(np.float64) + 0.5
+        c[0] /= max(a, 1e-7)
+        c[1] /= max(b, 1e-7)
+        c = c.transpose(1, 2, 0).reshape(-1, 2)
+        k2 = c[c.sum(-1) < 1]                      # (m, 2) barycentric
+        if len(k2) == 0:
+            continue
+        q = (v1[sel][:, None, :] * k2[None, :, :1]
+             + v2[sel][:, None, :] * k2[None, :, 1:]
+             + base[sel][:, None, :])
+        pts.append(q.reshape(-1, 3))
+    return np.concatenate(pts, 0)
+
+
+def sphere_chamfer(mesh_ply: str, radius: float = 1.0) -> dict:
+    """Bidirectional chamfer between the mesh and the analytic sphere."""
+    from scipy.spatial import cKDTree
+
+    from gs2m_tpu_torch.data.ply import fetch_mesh
+
+    verts, faces, _ = fetch_mesh(mesh_ply)
+    if len(faces) > 0:
+        pts = sample_mesh_surface(verts.astype(np.float64), faces, 0.01)
+    else:
+        pts = verts.astype(np.float64)
+    # mesh -> sphere: exact analytic distance.
+    d_m2s = np.abs(np.linalg.norm(pts, axis=1) - radius)
+    # sphere -> mesh: sampled sphere vs mesh point KD-tree (coverage term).
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(20000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    d_s2m, _ = cKDTree(pts).query(v * radius, k=1, workers=-1)
+    return {
+        "mesh_to_surface_mean": float(d_m2s.mean()),
+        "surface_to_mesh_mean": float(d_s2m.mean()),
+        "chamfer_mean": float(0.5 * (d_m2s.mean() + d_s2m.mean())),
+        "mesh_points": int(len(pts)),
+    }
+
+
+def main(argv=None) -> dict:
+    from gs2m_tpu_torch.apps import metrics as metrics_app
+    from gs2m_tpu_torch.apps import render as render_app
+    from gs2m_tpu_torch.apps import train as train_app
+
+    ap = argparse.ArgumentParser(description="gs2m_tpu_torch quality gate")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--iterations", type=int, default=5000)
+    ap.add_argument("--width", type=int, default=400)
+    ap.add_argument("--height", type=int, default=300)
+    ap.add_argument("--views", type=int, default=24)
+    ap.add_argument("--points", type=int, default=6000)
+    ap.add_argument("--production", action="store_true",
+                    help="DTU-shaped full protocol: 800x600, 49 views, 30k "
+                         "iterations with the reference schedule, "
+                         "noise-textured sphere")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --production: the same code path at 120x90, "
+                         "8 views, 600 iterations with a compressed schedule")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.production:
+        if args.smoke:
+            args.width, args.height = 120, 90
+            args.views = 8
+            args.points = 1_500
+            args.iterations = 600
+        else:
+            args.width, args.height = 800, 600
+            args.views = 49
+            args.points = 40_000
+            if args.iterations == ap.get_default("iterations"):
+                args.iterations = 30_000
+
+    scene_dir = os.path.join(args.out, "scene")
+    model_dir = os.path.join(args.out, "model")
+    smoke = args.production and args.smoke
+    if not os.path.exists(os.path.join(scene_dir, "sparse/0/images.bin")):
+        print("[>] Building synthetic surface scene", flush=True)
+        if args.production:
+            # Per-point noise texture, SfM cloud = 25 % of the true points
+            # (densification has to recover the rest).
+            build_sphere_scene(
+                scene_dir, n_views=args.views, width=args.width,
+                height=args.height, n_points=args.points, opacity_boost=8.0,
+                point_scale=0.06 if smoke else 0.02, texture="noise",
+                sfm_fraction=0.25, instance_cap=2 ** 15 if smoke else 2 ** 20,
+                device=args.device)
+        else:
+            build_sphere_scene(
+                scene_dir, n_views=args.views, width=args.width,
+                height=args.height, n_points=args.points, opacity_boost=8.0,
+                point_scale=0.05, device=args.device)
+
+    if smoke:
+        # Same flag surface as production, the schedule compressed so the
+        # geometry stage, densify, trim and reset all fire in 600 iterations.
+        stage_flags = ["--lambda_depth_normal", "0.015",
+                       "--geometry_from_iter", "200",
+                       "--densify_from_iter", "100",
+                       "--densify_until_iter", "500",
+                       "--opacity_reset_interval", "400", "--chunk", "64"]
+        test_iters = (200, 400, args.iterations)
+    elif args.production:
+        # The reference DTU protocol: default schedule, lambda_depth_normal
+        # 0.015, the full test-iteration ladder.
+        stage_flags = ["--lambda_depth_normal", "0.015"]
+        ladder = (1000, 5000, 7000, 10000, 15000, 20000, 25000, 30000)
+        test_iters = tuple(v for v in ladder if v < args.iterations) \
+            + (args.iterations,)
+    else:
+        stage_flags = ["--geometry_from_iter", "1000",
+                       "--densify_until_iter", str(int(args.iterations * 0.8)),
+                       "--densify_from_iter", "500",
+                       "--opacity_reset_interval", "3000"]
+        test_iters = (1000, 2000, 3000, args.iterations)
+    dev_flags = ["--device", args.device]
+
+    t0 = time.time()
+    train_app.main(
+        ["-s", scene_dir, "-m", model_dir, "--eval", "-r", "1",
+         "--iterations", str(args.iterations), *stage_flags, *dev_flags,
+         "--test_iterations", *map(str, test_iters),
+         "--save_iterations", str(args.iterations),
+         "--checkpoint_iterations", *map(str, test_iters)])
+    train_min = (time.time() - t0) / 60.0
+
+    voxel = "0.03" if smoke else ("0.01" if args.production else "0.02")
+    render_app.main(["-m", model_dir, "--extract_mesh", "--voxel_size", voxel,
+                     "--sdf_trunc", str(4 * float(voxel)),
+                     "--iteration", str(args.iterations), *dev_flags])
+    metrics_app.main(["-m", model_dir, *dev_flags])
+    metrics_app.main(["-m", model_dir, "--split", "test", *dev_flags])
+
+    mesh = os.path.join(model_dir, "train", f"ours_{args.iterations}", "mesh",
+                        "tsdf_post.ply")
+    chamfer = sphere_chamfer(mesh)
+    with open(os.path.join(model_dir, "metrics_test.json")) as f:
+        metrics = json.load(f)
+
+    # Held-out PSNR trajectory + capacity stats from the train log.
+    test_psnrs, peak_points, final_points, mv_active = [], 0, 0, None
+    with open(os.path.join(model_dir, "train_log.jsonl")) as log:
+        for line in log:
+            rec = json.loads(line)
+            if "test_psnr" in rec:
+                test_psnrs.append((rec["iteration"], rec["test_psnr"]))
+            if "points" in rec:
+                peak_points = max(peak_points, rec["points"])
+                final_points = rec["points"]
+            mv_active = rec.get("mv_active", mv_active)
+
+    result = {
+        "scene": "synthetic_sphere_noise" if args.production
+                 else "synthetic_sphere",
+        "production": bool(args.production),
+        "resolution": f"{args.width}x{args.height}",
+        "views": args.views,
+        "iterations": args.iterations,
+        "train_minutes": round(train_min, 2),
+        "chamfer": chamfer,
+        "test_psnr_trajectory": test_psnrs,
+        "metrics_test": metrics,
+        "peak_points": peak_points,
+        "final_points": final_points,
+        "mv_active_steps": mv_active,
+        "rough_active_steps": None,  # no material stage in the port yet
+        "mesh": mesh,
+    }
+    with open(os.path.join(args.out, "quality_gate.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print("[>] quality gate:", json.dumps(result, indent=2))
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

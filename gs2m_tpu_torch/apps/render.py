@@ -1,17 +1,20 @@
-"""Render CLI: per-view map export from a trained snapshot.
+"""Render + mesh-extraction CLI.
 
-Port of gs2m_tpu/apps/render.py's render path: the same flags, saved-config
-merge with CLI override and points.json bookkeeping; every view's render,
-GT, normal and depth maps are written as PNGs, with the instance cap
-doubled and the view re-rendered while binning reports `dropped` > 0.
-Runs on CUDA (default) or, when asked, on the CPU.
+Port of gs2m_tpu/apps/render.py: the same flags, saved-config merge with
+CLI override and points.json bookkeeping; every view's render, GT, normal
+and depth maps are written as PNGs, with the instance cap doubled and the
+view re-rendered while binning reports `dropped` > 0. --extract_mesh fuses
+the views' depths (zeroed by --filter_depth's grazing-angle test) and the
+colors read back from the saved render PNGs into a block-sparse TSDF,
+extracts the mesh (tsdf_mesh.ply) and keeps its --num_clusters largest
+clusters (tsdf_post.ply); --dtu, --tnt and --blender set the datasets'
+presets (TnT bounds from transforms.json's aabb_range). Runs on CUDA
+(default) or, when asked, on the CPU.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
---extract_mesh and the --dtu/--tnt/--blender presets that set it ("Mesh
-path and eval apps"), --spatial > 1 ("Parallelism"), material models
-("Material stage").
+--spatial > 1 ("Parallelism"), material models ("Material stage").
 
-Usage: python -m gs2m_tpu_torch.apps.render -m <model_dir> [-s <scene>]
+Usage: python -m gs2m_tpu_torch.apps.render -m <model_dir> [--dtu|--tnt|--blender]
 """
 from __future__ import annotations
 
@@ -26,9 +29,69 @@ import numpy as np
 import torch
 
 
-def render_views(model_cfg, pipe, args, gaussians, split, cameras,
-                 camera_infos, gt_images, alpha_masks, iteration) -> list[dict]:
-    """Render and save every view of one split; returns per-view stats."""
+def extract_mesh(args, scene_extent: float, mesh_dir: Path, cameras,
+                 camera_infos, render_dir: Path, fusion_depths, alpha_masks,
+                 bounds=None) -> dict:
+    """TSDF-fuse the views, extract and clean the mesh, write both PLYs;
+    returns the volume and mesh sizes and the ms of each stage (CUDA events
+    for the device stages on a card, the host clock for the rest)."""
+    from PIL import Image
+
+    from gs2m_tpu_torch.data.ply import store_mesh
+    from gs2m_tpu_torch.mesh import (fuse_depths, keep_largest_clusters,
+                                     marching_tetrahedra_blocks)
+    from gs2m_tpu_torch.mesh.tsdf import BLOCK_EDGE, stage_timer
+
+    os.makedirs(mesh_dir, exist_ok=True)
+    max_depth = args.max_depth if args.max_depth > 0 else 2.0 * scene_extent
+    voxel_size = args.voxel_size if args.voxel_size > 0 else max_depth / 1024.0
+    sdf_trunc = args.sdf_trunc if args.sdf_trunc > 0 else 4.0 * voxel_size
+    (mesh_dir / "config.json").write_text(json.dumps(
+        {"max_depth": max_depth, "voxel_size": voxel_size,
+         "sdf_trunc": sdf_trunc}, indent=4))
+
+    colors = np.zeros((len(cameras), 3, cameras[0].height, cameras[0].width),
+                      np.float32)
+    for i, info in enumerate(camera_infos):
+        p = render_dir / (info.image_name.rsplit(".", 1)[0] + ".png")
+        img = np.asarray(Image.open(p), np.float32)[..., :3] / 255.0
+        colors[i] = img.transpose(2, 0, 1)
+
+    print("[>] TSDF fusion...")
+    stages: dict[str, float] = {}
+    host = torch.device("cpu")
+    vol = fuse_depths(torch.stack(fusion_depths), colors, cameras,
+                      voxel_size, sdf_trunc, max_depth,
+                      alpha_masks=alpha_masks if bounds is None else None,
+                      bounds=bounds, stages=stages)
+    n_blocks = vol.block_coords.shape[0]
+    print(f"[>] Extracting mesh from {n_blocks} blocks...")
+    mesh = marching_tetrahedra_blocks(vol, stages=stages)
+    del vol
+    with stage_timer(stages, "to_host", host):
+        v, f, c = (x.cpu().numpy() for x in mesh)
+    del mesh
+    with stage_timer(stages, "ply_write", host):
+        store_mesh(str(mesh_dir / "tsdf_mesh.ply"), v, f, c)
+    print(f"[>] Raw mesh: {len(v)} vertices, {len(f)} faces")
+    with stage_timer(stages, "cluster", host):
+        v2, f2, c2 = keep_largest_clusters(v, f, c, args.num_clusters)
+    with stage_timer(stages, "ply_write", host):
+        store_mesh(str(mesh_dir / "tsdf_post.ply"), v2, f2, c2)
+    print(f"[>] Post-processed mesh: {len(v2)} vertices -> "
+          f"{mesh_dir / 'tsdf_post.ply'}")
+    return {"blocks": n_blocks, "voxels": n_blocks * BLOCK_EDGE ** 3,
+            "raw_vertices": len(v), "raw_faces": len(f),
+            "vertices": len(v2), "faces": len(f2),
+            "finite": bool(np.isfinite(v2).all() and np.isfinite(c2).all()),
+            "stage_ms": stages}
+
+
+def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
+                 cameras, camera_infos, gt_images, alpha_masks, iteration,
+                 bounds=None) -> tuple[list[dict], dict | None]:
+    """Render and save every view of one split, then (--extract_mesh) its
+    mesh; returns the per-view stats and extract_mesh's record or None."""
     from gs2m_tpu_torch.models.render import render
     from gs2m_tpu_torch.utils.images import (convert_normal_for_save,
                                              save_depth_colormap, save_image,
@@ -36,7 +99,7 @@ def render_views(model_cfg, pipe, args, gaussians, split, cameras,
 
     if not cameras:
         print(f"[!] No views to render in {split} set")
-        return []
+        return [], None
 
     base = Path(model_cfg.model_path) / split / f"{args.label}_{iteration}"
     dirs = {k: base / k for k in ["render", "gt", "normal", "depth"]}
@@ -53,20 +116,21 @@ def render_views(model_cfg, pipe, args, gaussians, split, cameras,
           else torch.zeros(3, device=device))
     instance_cap = max(int(8 * gaussians.capacity) // pipe.chunk * pipe.chunk,
                        4 * pipe.chunk)
+    need_sobel = args.filter_depth or args.normal_sobel
 
     def render_one(cam):
         nonlocal instance_cap
         while True:
             pkg = render(gaussians, cam, bg, gaussians.max_sh_degree,
                          geometry_stage=True, material_stage=True,
-                         sobel_normal=args.normal_sobel,
+                         sobel_normal=need_sobel,
                          blend_metallic=model_cfg.metallic, tile=pipe.tile,
                          chunk=pipe.chunk, instance_cap=instance_cap)
             if int(pkg["dropped"]) == 0 or instance_cap >= 2 ** 26:
                 return pkg
             instance_cap *= 2
 
-    stats = []
+    stats, fusion_depths = [], []
     for i, (cam, info) in enumerate(zip(cameras, camera_infos)):
         t0 = time.perf_counter()
         pkg = render_one(cam)
@@ -91,6 +155,20 @@ def render_views(model_cfg, pipe, args, gaussians, split, cameras,
         else:
             save_image(dirs["normal"] / f"{stem}.png", normal_img)
         save_depth_colormap(dirs["depth"] / f"{stem}.png", host["depth_map"][0])
+        if args.extract_mesh:
+            tsdf_depth = pkg["depth_map"][0]
+            if args.filter_depth:
+                # Grazing-angle filter as in the JAX package: arccos(|cos|)
+                # never exceeds pi/2, so the 100 degree threshold removes
+                # no depth; kept as it is there.
+                rays = cam.get_rays()
+                rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+                sm = pkg["sobel_map"].permute(1, 2, 0)
+                sm = sm / (torch.linalg.norm(sm, dim=-1, keepdim=True) + 1e-12)
+                ang = torch.arccos(torch.abs(torch.sum(rays * sm, -1)))
+                tsdf_depth = torch.where(ang > 100.0 / 180.0 * np.pi, 0.0,
+                                         tsdf_depth)
+            fusion_depths.append(tsdf_depth)
         save_image(dirs["render"] / f"{stem}.png", np.clip(host["render"], 0, 1))
         stats.append({"view": stem, "render_s": render_s,
                       "export_s": time.perf_counter() - t0 - render_s,
@@ -99,16 +177,23 @@ def render_views(model_cfg, pipe, args, gaussians, split, cameras,
                       "num_instances": int(pkg["num_instances"]),
                       "finite": all(bool(np.isfinite(h).all())
                                     for h in host.values())})
-    return stats
+    mesh = None
+    if args.extract_mesh:
+        mesh = extract_mesh(args, scene_extent, base / "mesh", cameras,
+                            camera_infos, dirs["render"], fusion_depths,
+                            alpha_masks, bounds)
+    return stats, mesh
 
 
-def main(argv=None) -> list[dict]:
-    """Returns the per-view stats of every rendered split."""
+def main(argv=None) -> dict:
+    """-> {"views": per-view stats of every rendered split, "meshes":
+    {split: extract_mesh's record}}."""
     from gs2m_tpu_torch import resolve_device
     from gs2m_tpu_torch.core.config import (ModelConfig, PipelineConfig,
                                             add_group_args, combine_args)
 
-    parser = ArgumentParser(description="gs2m_tpu_torch rendering")
+    parser = ArgumentParser(description="gs2m_tpu_torch rendering + mesh "
+                                        "extraction")
     add_group_args(parser, ModelConfig, fill_none=True)
     add_group_args(parser, PipelineConfig, fill_none=True)
     parser.add_argument("--iteration", default=-1, type=int)
@@ -130,10 +215,35 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args, model_cfg, pipe, _ = combine_args(parser, argv)
 
-    if args.extract_mesh or args.dtu or args.tnt or args.blender:
-        raise NotImplementedError(
-            "mesh extraction (--extract_mesh, --dtu, --tnt, --blender) is not "
-            "ported yet: ROADMAP.md Queue A, 'Mesh path and eval apps'")
+    bounds = None
+    if args.dtu:
+        args.max_depth, args.voxel_size = 5.0, 0.002
+        args.sdf_trunc = 4.0 * args.voxel_size
+        args.num_clusters, args.filter_depth = 1, False
+        args.extract_mesh, args.skip_test = True, True
+        args.normal_world = False
+    if args.tnt:
+        tnt_360 = ["barn", "caterpillar", "ignatius", "truck"]
+        scene_name = Path(model_cfg.model_path).name.lower()
+        args.max_depth = 3.0 if scene_name in tnt_360 else 4.5
+        args.num_clusters, args.filter_depth = 1, True
+        args.extract_mesh, args.skip_test = True, True
+        args.normal_world = False
+        voxel_size = 0.002
+        tf = Path(model_cfg.source_path) / "transforms.json"
+        if tf.exists():
+            transforms = json.loads(tf.read_text())
+            if "aabb_range" in transforms:
+                bounds = np.array(transforms["aabb_range"])
+                voxel_size = float(np.max(bounds[:, 1] - bounds[:, 0]) / 2048)
+        args.voxel_size = voxel_size
+        args.sdf_trunc = 4.0 * voxel_size
+    if args.blender:
+        args.skip_train, args.skip_test = True, False
+        args.normal_world, args.extract_mesh = True, True
+        args.max_depth, args.voxel_size = 8.0, 0.004
+        args.sdf_trunc = 4.0 * args.voxel_size
+        args.num_clusters = 1
     if args.spatial > 1:
         raise NotImplementedError(
             "--spatial > 1 is not ported yet: ROADMAP.md Queue A, "
@@ -169,18 +279,24 @@ def main(argv=None) -> list[dict]:
             alphas.append(alpha if alpha is not None else np.ones_like(rgb[:1]))
         return np.stack(rgbs), np.stack(alphas)
 
-    stats = []
+    splits = []
     if not args.skip_train:
-        gt, am = view_arrays(scene.train_camera_infos, scene.train_cameras)
-        stats += render_views(model_cfg, pipe, args, gaussians, "train",
-                              scene.train_cameras, scene.train_camera_infos,
-                              gt, am, iteration)
+        splits.append(("train", scene.train_camera_infos, scene.train_cameras,
+                       bounds))
     if not args.skip_test and scene.test_cameras:
-        gt, am = view_arrays(scene.test_camera_infos, scene.test_cameras)
-        stats += render_views(model_cfg, pipe, args, gaussians, "test",
-                              scene.test_cameras, scene.test_camera_infos,
-                              gt, am, iteration)
-    return stats
+        splits.append(("test", scene.test_camera_infos, scene.test_cameras,
+                       None))
+    out = {"views": [], "meshes": {}}
+    for split, infos, cams, split_bounds in splits:
+        gt, am = view_arrays(infos, cams)
+        stats, mesh = render_views(model_cfg, pipe, args,
+                                   scene.cameras_extent, gaussians, split,
+                                   cams, infos, gt, am, iteration,
+                                   split_bounds)
+        out["views"] += stats
+        if mesh is not None:
+            out["meshes"][split] = mesh
+    return out
 
 
 if __name__ == "__main__":

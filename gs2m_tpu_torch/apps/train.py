@@ -3,13 +3,16 @@
 Port of gs2m_tpu/apps/train.py: the same flag surface (model, pipeline and
 optimization groups, test/save iteration lists), the same staging
 defaults, cfg_args.json persistence for the render app, train_log.jsonl
-every 100 iterations and PLY snapshots at the save iterations. Runs on
+every 100 iterations, PLY snapshots at the save iterations, versioned
+checkpoints (checkpoints/ckp{it}.pkl at --checkpoint_iterations, resumed
+with --start_checkpoint) and a torch.profiler trace (--profile_iterations
+START STOP: opened before iteration START and closed after iteration STOP,
+as the JAX package's window, written under <model>/profile/). Runs on
 CUDA (default) or, when asked, on the CPU.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
 --data_parallel and --distributed ("Parallelism"), material models
-("Material stage"), --start_checkpoint and --checkpoint_iterations
-("Checkpoints"), --profile_iterations ("Profiler flag").
+("Material stage").
 
 Usage: python -m gs2m_tpu_torch.apps.train -s <scene> -m <out> [--iterations N]
 """
@@ -23,6 +26,30 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+
+
+def start_profiler(device: torch.device):
+    """A running torch.profiler session: CPU activity, and CUDA activity on
+    a card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, device: torch.device, out_dir: str, window):
+    """Sync the device, close the session and write its Chrome trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_{window[0]}_{window[1]}.json")
+    profiler.export_chrome_trace(path)
+    print(f"[>] profile trace written to {path}")
 
 
 def main(argv=None):
@@ -63,15 +90,6 @@ def main(argv=None):
         raise NotImplementedError(
             "the material stage is not ported yet: ROADMAP.md Queue A, "
             "'Material stage'")
-    if args.start_checkpoint or args.checkpoint_iterations:
-        raise NotImplementedError(
-            "versioned checkpoints (--start_checkpoint, "
-            "--checkpoint_iterations) are not ported yet: ROADMAP.md Queue A, "
-            "'Checkpoints'")
-    if args.profile_iterations:
-        raise NotImplementedError(
-            "--profile_iterations is not ported yet: ROADMAP.md Queue A, "
-            "'Profiler flag'")
     device = resolve_device(args.device)
 
     from gs2m_tpu_torch.data.scene import Scene
@@ -89,16 +107,28 @@ def main(argv=None):
           f"{scene.train_cameras[0].height}; extent {scene.cameras_extent:.3f}")
     reporter = TrainingReporter(model_cfg.model_path, enable=not args.quiet)
     trainer = Trainer(model_cfg, pipe, opt, scene)
+    if args.start_checkpoint:
+        trainer.load_checkpoint(args.start_checkpoint)
+        print(f"[>] Resumed from {args.start_checkpoint} at iteration "
+              f"{trainer.iteration}")
     print(f"[>] Capacity {trainer.gaussians.capacity}, "
           f"{trainer.gaussians.num_alive} alive, on {device}")
 
     t0 = time.time()
     log_path = os.path.join(model_cfg.model_path, "train_log.jsonl")
     ema = None
+    prof = args.profile_iterations
+    profiler = None
     with open(log_path, "a") as log_file:
         while trainer.iteration < opt.iterations:
+            if prof and trainer.iteration + 1 == prof[0]:
+                profiler = start_profiler(device)
             metrics = trainer.train_step()
             it = trainer.iteration
+            if profiler is not None and it == prof[1]:
+                stop_profiler(profiler, device, os.path.join(
+                    model_cfg.model_path, "profile"), prof)
+                profiler = None
             # Metrics stay on the device; reading them every step would add a
             # host sync per iteration.
             if it % 100 == 0:
@@ -160,7 +190,13 @@ def main(argv=None):
             if it in save_iterations:
                 print(f"[ITER {it:>6}] Saving snapshot")
                 trainer.save_snapshot(it)
+            if it in args.checkpoint_iterations:
+                trainer.save_checkpoint(os.path.join(
+                    model_cfg.model_path, "checkpoints", f"ckp{it}.pkl"))
 
+    if profiler is not None:  # the run ended inside the window
+        stop_profiler(profiler, device,
+                      os.path.join(model_cfg.model_path, "profile"), prof)
     wall_min = (time.time() - t0) / 60.0
     with open(os.path.join(model_cfg.model_path, "runtime.json"), "w") as f:
         json.dump({"minutes": wall_min, "iterations": opt.iterations}, f)

@@ -8,6 +8,8 @@ between the two packages:
 * Gaussian snapshots: x y z nx ny nz f_dc_* f_rest_* opacity scale_* rot_*
   albedo_* roughness metallic, all f4 (f_dc/f_rest flattened channel-major,
   i.e. (N, K, 3) -> transpose -> (N, 3K))
+* meshes: vertex x y z (+ optional uchar rgb) and face vertex_indices lists
+  (uchar count, int indices)
 """
 from __future__ import annotations
 
@@ -105,11 +107,22 @@ def read_ply(path: str) -> dict[str, np.ndarray]:
 
 
 def write_ply(path: str, elements: dict[str, np.ndarray]) -> None:
-    """Write {element_name: structured array} as binary_little_endian PLY."""
+    """Write {element_name: structured array | (N, K) int array} as
+    binary_little_endian PLY. A plain (N, K) int array is written as the
+    list property 'vertex_indices' (faces)."""
     lines = ["ply", "format binary_little_endian 1.0",
              "comment generated by gs2m_tpu"]
     payloads = []
     for name, arr in elements.items():
+        if arr.dtype.names is None:  # list property (faces)
+            n, k = arr.shape
+            lines.append(f"element {name} {n}")
+            lines.append("property list uchar int vertex_indices")
+            row = np.empty(n, dtype=[("c", "u1"), ("v", "<i4", (k,))])
+            row["c"] = k
+            row["v"] = arr.astype("<i4")
+            payloads.append(row.tobytes())
+            continue
         lines.append(f"element {name} {len(arr)}")
         fields = []
         for p in arr.dtype.names:
@@ -154,6 +167,36 @@ def fetch_point_cloud(path: str):
     else:
         normals = np.zeros_like(pts)
     return pts, cols, normals
+
+
+# --- meshes ------------------------------------------------------------------------
+
+def store_mesh(path: str, vertices: np.ndarray, faces: np.ndarray,
+               colors: np.ndarray | None = None) -> None:
+    """vertices (N,3) f32, faces (M,3) int, colors optional (N,3) in [0,1]."""
+    n = vertices.shape[0]
+    if colors is not None:
+        arr = np.empty(n, dtype=[("x", "f4"), ("y", "f4"), ("z", "f4"),
+                                 ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+        arr["red"], arr["green"], arr["blue"] = (
+            np.clip(colors * 255.0, 0, 255).astype(np.uint8).T)
+    else:
+        arr = np.empty(n, dtype=[("x", "f4"), ("y", "f4"), ("z", "f4")])
+    arr["x"], arr["y"], arr["z"] = vertices.T.astype(np.float32)
+    write_ply(path, {"vertex": arr, "face": faces.astype(np.int32)})
+
+
+def fetch_mesh(path: str):
+    """-> (vertices (N,3) f32, faces (M,3) int64, colors (N,3) f32 or None)."""
+    d = read_ply(path)
+    v = d["vertex"]
+    verts = np.stack([v["x"], v["y"], v["z"]], -1).astype(np.float32)
+    faces = d.get("face", np.zeros((0, 3), np.int64))
+    cols = None
+    if v.dtype.names and "red" in v.dtype.names:
+        cols = np.stack([v["red"], v["green"], v["blue"]],
+                        -1).astype(np.float32) / 255.0
+    return verts, faces, cols
 
 
 # --- Gaussian snapshots ---------------------------------------------------------

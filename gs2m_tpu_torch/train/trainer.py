@@ -26,7 +26,9 @@ densification) and at the trim.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import pickle
 import time
 
 import numpy as np
@@ -394,3 +396,92 @@ class Trainer:
                           take(g.features_rest), take(g.opacity),
                           take(g.scaling), take(g.rotation), take(g.albedo),
                           take(g.roughness), take(g.metallic))
+
+    # Bump when the checkpoint layout changes; load_checkpoint refuses a
+    # newer one instead of resuming from silently misread state.
+    CHECKPOINT_VERSION = 2
+
+    def save_checkpoint(self, path: str):
+        """Pickle the whole training state as numpy arrays and Python
+        scalars: the JAX package's version-2 top-level keys (its material
+        and term_cut entries None or 0 here) plus the state that decides the
+        next steps, so a resumed run repeats the uninterrupted one: the host
+        rng, the device generator, the view pool and the drop window."""
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        g = self.gaussians
+        gaussians = {f.name: host(getattr(g, f.name))
+                     for f in dataclasses.fields(g) if f.name != "max_sh_degree"}
+        gaussians["max_sh_degree"] = g.max_sh_degree
+        state = {
+            "version": self.CHECKPOINT_VERSION,
+            "iteration": self.iteration,
+            "active_sh_degree": self.active_sh_degree,
+            "capacity": g.capacity,
+            "instance_cap": self.instance_cap,
+            "expand_cap": None,
+            "gaussians": gaussians,
+            "opt_state": {"mu": {k: host(v) for k, v in self.opt_state.mu.items()},
+                          "nu": {k: host(v) for k, v in self.opt_state.nu.items()},
+                          "count": self.opt_state.count},
+            "stats": {f.name: host(getattr(self.stats, f.name))
+                      for f in dataclasses.fields(self.stats)},
+            "light_state": None,
+            "light_opt_state": None,
+            "mv_active_count": int(self.mv_active_count),
+            "rough_active_count": 0,
+            "rng": self.rng.bit_generator.state,
+            "generator": host(self.generator.get_state()),
+            "view_pool": list(self._view_pool),
+            "dropped_window": int(self._dropped_window),
+        }
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+
+    def load_checkpoint(self, path: str):
+        """Restore a save_checkpoint pickle onto this trainer's device.
+        Refuses a newer version and a capacity that does not match the
+        restored arrays. The JAX package's checkpoints pickle its own
+        classes (JAX arrays, its Gaussians and optimizer states), so the
+        port cannot read them; resume those in the JAX package."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        version = state.get("version", 1)
+        if version > self.CHECKPOINT_VERSION:
+            raise ValueError(
+                f"checkpoint {path} is version {version}, this build reads "
+                f"<= {self.CHECKPOINT_VERSION} — update the code or retrain")
+        dev = self.device
+
+        def dev_t(x):
+            return torch.from_numpy(np.array(x)).to(dev)
+
+        g = dict(state["gaussians"])
+        max_sh = g.pop("max_sh_degree")
+        gaussians = Gaussians(**{k: dev_t(v) for k, v in g.items()},
+                              max_sh_degree=max_sh)
+        if state["capacity"] != gaussians.capacity:
+            raise ValueError(
+                f"checkpoint capacity {state['capacity']} != restored array "
+                f"capacity {gaussians.capacity} — corrupted checkpoint")
+        o = state["opt_state"]
+        self.gaussians = gaussians
+        self.opt_state = AdamState(mu={k: dev_t(v) for k, v in o["mu"].items()},
+                                   nu={k: dev_t(v) for k, v in o["nu"].items()},
+                                   count=int(o["count"]))
+        self.stats = D.DensifyStats(**{k: dev_t(v)
+                                       for k, v in state["stats"].items()})
+        self.iteration = int(state["iteration"])
+        self.active_sh_degree = int(state["active_sh_degree"])
+        self.instance_cap = int(state["instance_cap"])
+        self.mv_active_count = int(state["mv_active_count"])
+        self.rng.bit_generator.state = state["rng"]
+        self.generator.set_state(torch.from_numpy(state["generator"]))
+        self._view_pool = list(state["view_pool"])
+        self._dropped_window = torch.tensor(state["dropped_window"],
+                                            dtype=torch.int32, device=dev)
+        # Restored state invalidates the steps built for the old shapes.
+        self._steps.clear()
+        self._observe_counter = None

@@ -2,8 +2,8 @@
 
 Port of gs2m_tpu/utils/images.py (numpy + PIL): PNG export of [0, 1] maps,
 RGBA compositing with an alpha mask, the magma depth colormap with
-1/99-percentile clipping, and camera-space normal export with the
-Y-up/Z-back flip.
+1/99-percentile clipping, camera-space normal export with the
+Y-up/Z-back flip, and PSNR.
 """
 from __future__ import annotations
 
@@ -90,3 +90,8 @@ def convert_normal_for_save(normal_chw: np.ndarray, camera,
         n = n * np.array([1.0, -1.0, -1.0])
     n = n * 0.5 + 0.5
     return n.reshape(camera.height, camera.width, 3).transpose(2, 0, 1)
+
+
+def psnr(img1: np.ndarray, img2: np.ndarray) -> float:
+    mse = float(np.mean((np.asarray(img1) - np.asarray(img2)) ** 2))
+    return float(20.0 * np.log10(1.0 / np.sqrt(max(mse, 1e-12))))

@@ -5,7 +5,8 @@ render app's material package does), the paths' chunk of 256 and other
 chunks, and edges the paths rarely reach (ragged image edges, termination,
 the 0.99 clamp, empty and overflowing layouts, Gaussians that cross many
 warps and tiles, opacities next to 1/255, the largest chunks, tiles whose
-pixels all fall to T <= 0.5 early, where K3 retires them).
+pixels all fall to T <= 0.5 early, where K3 retires them); and the mesh
+path (TSDF fusion, marching tetrahedra) on the card against the CPU.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -344,3 +345,54 @@ def test_train_steps_do_not_sync_with_the_host(cuda, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     assert trainer.mv_active_count > 0
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+def sphere_views(device, n=8, W=96, H=72):
+    """Analytic unit-sphere depths (tests/test_mesh.py's ray-sphere hit) and
+    seeded colors from a ring of n cameras."""
+    rng = np.random.default_rng(0)
+    cams, depths = [], []
+    for i in range(n):
+        th = 2 * np.pi * i / n
+        eye = np.array([4.0 * np.sin(th), 0.5, -4.0 * np.cos(th)])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        cam = Camera.create(R, -R.T @ eye, 0.7, 0.55, W, H, device=device)
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+        d = np.stack([(xs - W / 2) / float(cam.fx), (ys - H / 2) / float(cam.fy),
+                      np.ones_like(xs)], -1) @ R.T
+        b, a = np.sum(d * eye, -1), np.sum(d * d, -1)
+        disc = b * b - a * (eye @ eye - 1.0)
+        s = (-b - np.sqrt(np.maximum(disc, 0))) / a
+        depths.append(np.where((disc > 0) & (s > 0), s, 0.0).astype(np.float32))
+        cams.append(cam)
+    colors = rng.uniform(0, 1, (n, 3, H, W)).astype(np.float32)
+    return cams, np.stack(depths), colors
+
+
+@pytest.mark.parametrize("bounds", [None, [[-2.0, 0.0], [-2.0, 2.0],
+                                           [-2.0, 2.0]]], ids=["all", "bounds"])
+def test_mesh_path_on_card_matches_cpu(cuda, bounds):
+    """fuse_depths and marching_tetrahedra_blocks on the card: the same
+    blocks, volume and faces as on the CPU (the fusion is elementwise with
+    tensor divisors, so both devices round alike), vertices within 1e-6."""
+    from gs2m_tpu_torch.mesh import fuse_depths, marching_tetrahedra_blocks
+
+    out = {}
+    for dev in ("cpu", cuda):
+        cams, depths, colors = sphere_views(dev)
+        vol = fuse_depths(depths, colors, cams, 0.05, 0.15, 8.0,
+                          bounds=bounds, slab_blocks=300)
+        mesh = marching_tetrahedra_blocks(vol, slab_blocks=100)
+        out[str(dev)] = [t.cpu() for t in (vol.block_coords, vol.tsdf,
+                                            vol.weight, vol.color, *mesh)]
+    (bc, tsdf, w, col, v, f, c), ref = out["cuda"], out["cpu"]
+    assert torch.equal(bc, ref[0]) and bc.shape[0] > 100
+    assert torch.equal(w, ref[2])
+    torch.testing.assert_close(tsdf, ref[1], rtol=0, atol=1e-6)
+    torch.testing.assert_close(col, ref[3], rtol=0, atol=1e-6)
+    assert torch.equal(f, ref[5]) and f.shape[0] > 1000
+    torch.testing.assert_close(v, ref[4], rtol=0, atol=1e-6)
+    torch.testing.assert_close(c, ref[6], rtol=0, atol=1e-6)

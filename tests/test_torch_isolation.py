@@ -36,7 +36,10 @@ def test_port_has_its_modules():
                 # training slice
                 "ops/knn", "ops/ssim", "ops/grid_sample", "models/losses",
                 "train/optim", "train/densify", "train/trainer",
-                "train/reporting", "utils/grad_gate", "apps/train"):
+                "train/reporting", "utils/grad_gate", "apps/train",
+                # mesh path, metrics, quality gate
+                "mesh/__init__", "mesh/tsdf", "mesh/marching",
+                "mesh/cluster", "apps/metrics", "apps/quality_gate"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 
