@@ -30,12 +30,38 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 geometry steps, densification at two boundaries, checkpoints
                 at 10 and 20, a profiler trace of 12..14, evaluation and a
                 snapshot at the end; a second train app resumed from the
-                iteration-10 checkpoint to 20; then the trim's observe counter
+                iteration-10 checkpoint to 20, held to the uninterrupted run
+                bit for bit (loss, parameters, Adam moments, densify
+                statistics); then the trim's observe counter
                 over the 8 views; then warmup and geometry steps timed and
                 one geometry step profiled; then the trim counter timed,
                 profiled and split into its stages; then the kernel phase again at
                 the train path's own shapes (the trained Gaussians on view 0,
                 V=8, the trainer's chunk and instance cap)
+  determinism   two runs of the same two geometry steps from one state (an
+                in-memory copy of the trainer) end bit-equal: loss, every
+                parameter, the Adam moments, the densify statistics; then
+                one step under torch.use_deterministic_algorithms(True,
+                warn_only=True), whose warnings name any op left without a
+                deterministic implementation
+  material      the material stage at train-full's width: the train scene
+                with an all-255 masks/ dir, trained with DTU's material
+                flags (scripts/run_dtu.py:46-51) for 20 iterations (5
+                warmup, 15 geometry + material against a 512 cubemap),
+                a checkpoint at 10 and a profile of 12..14; a second run
+                resumed from it, held bit for bit to the uninterrupted
+                one (loss, parameters, light); the launches the schedule
+                implies by value width (K1 at V=16 for the main and nearest
+                views and the evaluation, V=8 for the nearby render that
+                the roughness term needs, K2 at V=16); the determinism
+                check on material steps (the light and its moments too);
+                material steps timed (median of 10) and profiled, with
+                their device time split by the trainer's own profiler
+                ranges (renders, the PBR pass with build_mips, losses,
+                backward, Adam, the light step) and their peak memory;
+                the render app on the model (PBR renders, material maps,
+                envmap.png); then K1 and K2 at V=16 against their plain
+                versions at the material step's shapes
   quality       the port's quality gate, gs2m_tpu_torch.apps.quality_gate,
                 at the JAX package's smoke scale (120x90, 8 views, 600
                 iterations, mesh at voxel 0.03): train -> render -> TSDF
@@ -44,6 +70,11 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 its PSNR 27.73 (BASELINE.md); then the kernel phase again at
                 the gate's own shapes (its trained Gaussians on view 0,
                 120x90, V=8, chunk 64, its trainer's instance cap)
+  material gate the port's material gate, gs2m_tpu_torch.apps.material_gate
+                --smoke (the glossy sphere under the analytic light, 160x120,
+                12 views, 3,000 points, 600 iterations, material from 300):
+                held to finite losses, a roughness term that fired, a light
+                that changed and stays >= 0, and a finite PBR test PSNR
 
 Launch counts are zeroed just before each path and read just after; every
 kernel of a path must have launched, as often as its schedule implies.
@@ -81,9 +112,11 @@ TRAIN_POINTS, TRAIN_W, TRAIN_H, TRAIN_VIEWS = 300_000, 800, 600, 8
 TRAIN_ITERS, GEOMETRY_FROM, DENSIFY_FROM, DENSIFY_EVERY = 20, 5, 5, 8
 EVAL_VIEWS = 5  # the train app evaluates the first five train views
 CHECKPOINTS, PROFILE = (10, 20), (12, 14)
-# The resumed train app's last loss against the uninterrupted run's (bit
-# for bit on the CPU, tests/test_torch_checkpoint.py).
-RESUME_RTOL = 1e-4
+# The material cell: DTU's material flags (scripts/run_dtu.py:46-51), with
+# the all-255 masks that --mask_gt reads.
+MATERIAL_FLAGS = ("--material", "--mask_gt", "--masks", "masks",
+                  "--reflection_threshold", "1.0", "--lambda_smooth", "0.0",
+                  "--lambda_normal", "0.1")
 # The quality phase's limits: 1.5x the JAX package's smoke chamfer (0.069)
 # and 2 dB under its test PSNR (27.73), BASELINE.md's r4 smoke gate.
 CHAMFER_MAX, TEST_PSNR_MIN = 0.10, 25.7
@@ -324,10 +357,10 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int):
     geom, vals = gather_instances(values, proj.means2d, proj.conics, op,
                                   binning.gid, binning.is_null)
     kw = dict(T=T, grid_x=grid_x, width=W, height=H, tile=16, chunk=chunk)
-    n0 = LAUNCHES["blend_fwd"]
+    n0 = LAUNCHES["blend_fwd", vals.shape[0]]
     ker = blend_fwd(geom, vals, binning.chunk_tile, **kw)
     torch.cuda.synchronize()
-    if LAUNCHES["blend_fwd"] != n0 + 1:
+    if LAUNCHES["blend_fwd", vals.shape[0]] != n0 + 1:
         fail("blend_fwd did not launch its kernel on a CUDA tensor")
     ref = blend_fwd_plain(geom, vals, binning.chunk_tile, **kw)
     torch.cuda.synchronize()
@@ -412,15 +445,16 @@ def k2_phase(ctx: dict) -> dict:
     g_img[T] = 0.0
     gT[T] = 0.0
     args = (geom, vals, b.chunk_tile, k1.clogT, k1.cdone, g_img, gT, k1.fT)
-    n0 = LAUNCHES["blend_bwd"]
+    n0 = LAUNCHES["blend_bwd", V]
     ker = blend_bwd(*args, **kw)
     again = blend_bwd(*args, **kw)
     torch.cuda.synchronize()
-    if LAUNCHES["blend_bwd"] != n0 + 2:
+    if LAUNCHES["blend_bwd", V] != n0 + 2:
         fail("blend_bwd did not launch its kernel on a CUDA tensor")
     ref = blend_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    report = {"bit_equal_rerun": bool(torch.equal(ker.dgeom, again.dgeom)
+    report = {"V": V,
+              "bit_equal_rerun": bool(torch.equal(ker.dgeom, again.dgeom)
                                       and torch.equal(ker.dvals, again.dvals))}
     if not report["bit_equal_rerun"]:
         fail("K2: two runs on the same inputs differ")
@@ -490,10 +524,10 @@ def k3_phase(ctx: dict) -> dict:
                                           blend_obs_plain, kernel_info)
 
     geom, b, kw, k1 = (ctx[k] for k in ("geom", "binning", "kw", "k1"))
-    n0 = LAUNCHES["blend_obs"]
+    n0 = LAUNCHES["blend_obs", 0]
     ker = blend_obs(geom, b.chunk_tile, **kw)
     torch.cuda.synchronize()
-    if LAUNCHES["blend_obs"] != n0 + 1:
+    if LAUNCHES["blend_obs", 0] != n0 + 1:
         fail("blend_obs did not launch its kernel on a CUDA tensor")
     ref = blend_obs_plain(geom, b.chunk_tile, **kw)
     report = {"equal_plain": bool(torch.equal(ker, ref)),
@@ -580,8 +614,9 @@ def profile_call(label: str, fn, wall_ms: float) -> dict:
     unprofiled CUDA-event time of the same call (the profiler's own overhead
     stretches its wall, so its idle share is printed only beside it)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gs2m_tpu_torch.apps.train import profile_summary
 
     fn()
     torch.cuda.synchronize()
@@ -590,18 +625,18 @@ def profile_call(label: str, fn, wall_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key[:70])
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    s = profile_summary(prof, prof_wall_ms, top=15)
+    busy_ms = s["busy_ms"]
     print(f"[smoke] {label} profile: device busy {busy_ms:.2f} ms; idle share "
           f"{1 - busy_ms / wall_ms:.3f} of the unprofiled {wall_ms:.2f} ms "
           f"(under the profiler: wall {prof_wall_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / prof_wall_ms:.3f}); {sum(r[1] for r in rows)} "
-          f"kernel launches")
-    for ms, n, name in rows[:15]:
-        print(f"[smoke]   {ms:8.3f} ms {n:4d}x  {name}")
+          f"{s['idle_share']:.3f}); {s['launches']} kernel launches")
+    if s["stages"]:
+        print(f"[smoke] {label} device ms by stage (the trainer's profiler "
+              f"ranges): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in s["stages"].items()))
+    for k in s["kernels"]:
+        print(f"[smoke]   {k['ms']:8.3f} ms {k['count']:4d}x  {k['name'][:70]}")
     return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms}
 
 
@@ -663,6 +698,104 @@ def trim_phase(trainer, card: str) -> None:
           f"included): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
 
 
+def training_state(trainer) -> dict:
+    """Every tensor a train step reads or writes, copied: the parameters,
+    their Adam moments, the densify statistics, the light and its moments
+    (material stage), and the last loss."""
+    import dataclasses
+
+    state = {f"param/{k}": v.clone()
+             for k, v in trainer.gaussians.params_dict().items()}
+    state["alive"] = trainer.gaussians.alive.clone()
+    for k in trainer.opt_state.mu:
+        state[f"mu/{k}"] = trainer.opt_state.mu[k].clone()
+        state[f"nu/{k}"] = trainer.opt_state.nu[k].clone()
+    for f in dataclasses.fields(trainer.stats):
+        state[f"stats/{f.name}"] = getattr(trainer.stats, f.name).clone()
+    if trainer.light_state is not None:
+        state["light"] = trainer.light_state.clone()
+        state["light/mu"] = trainer.light_opt_state.mu["light"].clone()
+        state["light/nu"] = trainer.light_opt_state.nu["light"].clone()
+    if trainer.last_metrics is not None:
+        state["loss"] = trainer.last_metrics["loss"].clone()
+    return state
+
+
+def differing(a: dict, b: dict) -> list:
+    """The keys of two training_state dicts whose tensors are not bit-equal."""
+    import torch
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def snapshot(trainer) -> dict:
+    """The trainer's whole step state, copied in memory (no checkpoint
+    file), for restore()."""
+    import copy
+    return {"tensors": copy.deepcopy((trainer.gaussians, trainer.opt_state,
+                                      trainer.stats, trainer.light_state,
+                                      trainer.light_opt_state,
+                                      trainer._dropped_window)),
+            "generator": trainer.generator.get_state(),
+            "rng": copy.deepcopy(trainer.rng.bit_generator.state),
+            "scalars": (trainer.iteration, trainer.active_sh_degree,
+                        list(trainer._view_pool), trainer.mv_active_count,
+                        trainer.rough_active_count, trainer.instance_cap)}
+
+
+def restore(trainer, snap: dict) -> None:
+    import copy
+    (trainer.gaussians, trainer.opt_state, trainer.stats, trainer.light_state,
+     trainer.light_opt_state,
+     trainer._dropped_window) = copy.deepcopy(snap["tensors"])
+    trainer.generator.set_state(snap["generator"])
+    trainer.rng.bit_generator.state = copy.deepcopy(snap["rng"])
+    (trainer.iteration, trainer.active_sh_degree, pool, trainer.mv_active_count,
+     trainer.rough_active_count, trainer.instance_cap) = snap["scalars"]
+    trainer._view_pool = list(pool)
+
+
+def determinism_phase(trainer, label: str, steps: int = 2) -> None:
+    """Two runs of the same `steps` train steps from one state must end bit
+    for bit equal; then one step under torch's deterministic-algorithms
+    mode with warn_only, whose warnings name each op on the step's path
+    that has no deterministic implementation. The trainer ends where the
+    first run ended."""
+    import warnings
+
+    import torch
+
+    snap = snapshot(trainer)
+    runs = []
+    for _ in range(2):
+        restore(trainer, snap)
+        for _ in range(steps):
+            trainer.train_step()
+        torch.cuda.synchronize()
+        runs.append(training_state(trainer))
+    bad = differing(*runs)
+    restore(trainer, snap)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                    if "determinis" in str(w.message)})
+    restore(trainer, snap)
+    for _ in range(steps):
+        trainer.train_step()
+    print(f"[smoke] {label} determinism: {steps} steps run twice from one "
+          f"state at iteration {snap['scalars'][0]}: {len(runs[0])} tensors, "
+          f"{len(bad)} differ {bad[:8]}; ops without a deterministic "
+          f"implementation on the step (warn_only): {named or 'none'}")
+    if bad:
+        fail(f"{label}: two runs of the same steps differ in {bad}")
+
+
 @contextlib.contextmanager
 def gate_probe():
     """While the quality gate runs: keeps its trainer (the train app's
@@ -711,14 +844,13 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
     from gs2m_tpu_torch.apps import quality_gate
     from gs2m_tpu_torch.ops import blend
 
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
+    blend.LAUNCHES.clear()
     t0 = time.perf_counter()
     with gate_probe() as probe:
         q = quality_gate.main(["--out", str(q_out), "--production",
                                "--smoke", *gate_flags])
     q_wall = time.perf_counter() - t0
-    q_launches = dict(blend.LAUNCHES)
+    q_launches = blend.launch_counts()
     gate = probe["trainer"]
     test = next(iter(q["metrics_test"].values()), {})
     # What the gate's schedule launches: K1 once per GT view, once per
@@ -763,6 +895,169 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
     if q_launches != want_q:
         fail(f"quality gate launches {q_launches}, expected {want_q}")
     return q, gate, q_launches
+
+
+def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
+    """The material cell: the train app with DTU's material flags on the
+    train scene (all-255 masks added), its checkpoint resume held bit for
+    bit, its launches by value width, the determinism check, material
+    steps timed and profiled (device time by stage), the render app on the
+    model, and K1 and K2 at V=16 against their plain versions at the step's
+    shapes.
+    Returns (the kernel reports, the path's launches by kernel at V=16)."""
+    import torch
+    from PIL import Image
+
+    from gs2m_tpu_torch.apps import render as render_app
+    from gs2m_tpu_torch.apps import train as train_app
+    from gs2m_tpu_torch.ops import blend
+
+    masks = train_dir / "masks"
+    masks.mkdir(exist_ok=True)
+    full = np.full((TRAIN_H, TRAIN_W), 255, np.uint8)
+    for img in sorted((train_dir / "images").iterdir()):
+        Image.fromarray(full).save(masks / img.name)
+    mat_argv = argv + list(MATERIAL_FLAGS)
+    model = root / "material_model"
+    blend.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt = train_app.main(mat_argv + ["-m", str(model),
+                                    "--checkpoint_iterations",
+                                    str(CHECKPOINTS[0]),
+                                    "--profile_iterations", *map(str, PROFILE)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    app_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(blend.LAUNCHES)
+    n_warm, n_mat = GEOMETRY_FROM, TRAIN_ITERS - GEOMETRY_FROM
+    # Warmup: K1 and K2 at V=8 once a step. Material steps: K1 at V=16 for
+    # the view and its nearest, K1 at V=8 for the nearby view when the view
+    # has one (the roughness term; skipped otherwise), K2 at V=16 for the
+    # view and, where the multi-view term fired, its nearest. The evaluation
+    # at the end renders the first five views at V=16.
+    want = {("blend_fwd", 8): n_warm + mt.rough_active_count,
+            ("blend_fwd", 16): 2 * n_mat + EVAL_VIEWS,
+            ("blend_bwd", 8): n_warm,
+            ("blend_bwd", 16): n_mat + mt.mv_active_count}
+    m = mt.last_metrics
+    light0 = mt.pbr_fns["init_light"]()
+    print(f"[smoke] material train app: {TRAIN_ITERS} iterations ({n_warm} "
+          f"warmup, {n_mat} geometry + material, cubemap "
+          f"{mt.light_state.shape[1]}) in {wall:.1f} s; last loss "
+          f"{float(m['loss']):.5f}, Lmat {float(m['Lmat']):.5f}; eval "
+          f"{mt.last_eval}; rough_active {mt.rough_active_count}, mv_active "
+          f"{mt.mv_active_count}; light min {float(mt.light_state.min()):.4f}, "
+          f"mean |change| {float((mt.light_state - light0).abs().mean()):.5f}; "
+          f"launches {launches} (expected {want}); peak memory "
+          f"{app_peak:.2f} GiB on {card}")
+    if not (np.isfinite(float(m["loss"])) and float(m["Lmat"]) > 0):
+        fail(f"material train app: loss {float(m['loss'])}, Lmat "
+             f"{float(m['Lmat'])}")
+    if not (float(mt.light_state.min()) >= 0
+            and bool((mt.light_state != light0).any())):
+        fail("material train app: the light did not change or went below 0")
+    if launches != want:
+        fail(f"material path launches {launches}, expected {want}")
+    snap = model / "point_cloud" / f"iteration_{TRAIN_ITERS}"
+    if not (snap / "lighting.pkl").is_file() or "psnr_pbr" not in mt.last_eval:
+        fail("material train app: no lighting.pkl or no PBR evaluation")
+    summary = model / "profile" / f"summary_{PROFILE[0]}_{PROFILE[1]}.json"
+    print(f"[smoke] material train app profile {PROFILE[0]}..{PROFILE[1]}: "
+          f"{summary.read_text()[:1500]}")
+
+    ckpt = model / "checkpoints" / f"ckp{CHECKPOINTS[0]}.pkl"
+    t0 = time.perf_counter()
+    resumed = train_app.main(mat_argv + ["-m", str(root / "material_resumed"),
+                                         "--start_checkpoint", str(ckpt)])
+    bad = differing(training_state(resumed), training_state(mt))
+    print(f"[smoke] material resume from {ckpt.name} ({ckpt.stat().st_size} "
+          f"bytes) to {resumed.iteration} in {time.perf_counter() - t0:.1f} "
+          f"s: last loss {float(resumed.last_metrics['loss'])!r} "
+          f"(uninterrupted {float(m['loss'])!r}); tensors not bit-equal: {bad}")
+    if bad:
+        fail(f"material resume is not bit-equal to the uninterrupted run in "
+             f"{bad}")
+    del resumed
+    determinism_phase(mt, "train-material")
+
+    def material_step():
+        view, nearest, has_n, nearby, has_nb = mt.choose_views(True)
+        (mt.gaussians, mt.opt_state, mt.stats, out) = mt._get_step(True, True)(
+            mt.gaussians, mt.opt_state, mt.stats, view, nearest, has_n,
+            mt.iteration, mt.active_sh_degree, mt.generator,
+            light=mt.light_state, light_opt_state=mt.light_opt_state,
+            nearby_idx=nearby, has_nearby=has_nb)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(material_step, 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[smoke] material step at {TRAIN_W}x{TRAIN_H}, "
+          f"{mt.gaussians.num_alive} Gaussians, cubemap "
+          f"{mt.light_state.shape[1]}: {step_ms:.2f} ms/step (median of 10, "
+          f"CUDA events) on {card}; peak memory {peak:.2f} GiB")
+    profile_call("material step", material_step, step_ms)
+
+    blend.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = render_app.main(["-m", str(model), "-s", str(train_dir)])
+    r_wall = time.perf_counter() - t0
+    r_launches = dict(blend.LAUNCHES)
+    stats = out["views"]
+    base = model / "train" / f"ours_{TRAIN_ITERS}"
+    for kind in ("render", "albedo", "roughness", "metallic", "diffuse",
+                 "specular"):
+        files = sorted((base / kind).iterdir())
+        if len(files) != TRAIN_VIEWS or Image.open(files[0]).size != (TRAIN_W,
+                                                                      TRAIN_H):
+            fail(f"material render app: {kind} has {len(files)} files")
+    if not (base / "envmap.png").is_file() or not all(
+            s["finite"] and s["dropped"] == 0 for s in stats):
+        fail("material render app: no envmap.png, or a view dropped or was "
+             "not finite")
+    print(f"[smoke] material render app: {TRAIN_VIEWS} views in {r_wall:.2f} "
+          f"s (PBR renders, material maps, envmap.png); render ms/view "
+          f"{[round(s['render_s'] * 1e3, 2) for s in stats]}; export ms/view "
+          f"{[round(s['export_s'] * 1e3, 1) for s in stats]}; launches "
+          f"{r_launches}")
+
+    # K1 and K2 at V=16 at the material step's shapes: the trained
+    # Gaussians on view 0, feature count 9, the trainer's chunk and cap.
+    k1, ctx = kernel_phase(mt.gaussians, mt.scene.train_cameras[0],
+                           mt.pipe.chunk, mt.instance_cap, 9)
+    print(f"[smoke] train-material K1 blend_fwd: {json.dumps(k1)}")
+    k2 = k2_phase(ctx)
+    print(f"[smoke] train-material K2 blend_bwd: {json.dumps(k2)}")
+    if k1["V"] != 16 or k2["V"] != 16:
+        fail(f"train-material kernels at V={k1['V']}/{k2['V']}, not 16")
+    return ({"blend_fwd": k1, "blend_bwd": k2},
+            {"blend_fwd": launches["blend_fwd", 16],
+             "blend_bwd": launches["blend_bwd", 16]})
+
+
+def material_gate_path(out: Path, card: str) -> dict:
+    """apps.material_gate --smoke, held to finite losses, a roughness term
+    that fired, a light that changed and stays >= 0, and a finite PBR test
+    PSNR. Not held to `pass`: the JAX gate never completed, so there is no
+    reference number at this scale."""
+    from gs2m_tpu_torch.apps import material_gate
+
+    t0 = time.perf_counter()
+    res = material_gate.main(["--out", str(out), "--smoke"])
+    wall = time.perf_counter() - t0
+    psnr_pbr = [v for _, v in res["test_psnr_pbr_trajectory"]]
+    print(f"[smoke] material gate (smoke scale, {wall:.1f} s): "
+          f"{json.dumps(res)} on {card}")
+    if not res["losses_finite"] or not np.isfinite(res["final_loss"]):
+        fail("material gate: non-finite losses")
+    if not res["rough_active_steps"]:
+        fail("material gate: the roughness term never fired")
+    if not (res["light"]["min"] >= 0 and res["light"]["mean_abs_change"] > 0):
+        fail(f"material gate: light {res['light']}")
+    if not psnr_pbr or not np.isfinite(psnr_pbr[-1]):
+        fail(f"material gate: PBR test PSNR {psnr_pbr}")
+    return res
 
 
 def main(argv=None) -> None:
@@ -822,14 +1117,13 @@ def main(argv=None) -> None:
     render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9)
 
     # --- phase 4: the render app with DTU's mesh preset --------------------------
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
+    blend.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = render_app.main(["-m", str(model_dir), "-s", str(scene_dir), "--dtu"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = dict(blend.LAUNCHES)
+    launches = blend.launch_counts()
     stats, mesh = out["views"], out["meshes"].get("train")
     if len(stats) != VIEWS:
         fail(f"render app rendered {len(stats)} views, expected {VIEWS}")
@@ -893,8 +1187,7 @@ def main(argv=None) -> None:
             "--multi_view_max_angle", "179", "--multi_view_max_dist", "100",
             "--nearby_cam_max_angle", "179", "--nearby_cam_max_dist", "100",
             "--quiet"]
-    for k in blend.LAUNCHES:
-        blend.LAUNCHES[k] = 0
+    blend.LAUNCHES.clear()
     t0 = time.perf_counter()
     trainer = train_app.main(
         argv + ["-m", str(train_model),
@@ -905,7 +1198,7 @@ def main(argv=None) -> None:
         trainer.gaussians)
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
-    train_launches = dict(blend.LAUNCHES)
+    train_launches = blend.launch_counts()
 
     n_warm = GEOMETRY_FROM
     n_geo = TRAIN_ITERS - GEOMETRY_FROM
@@ -954,18 +1247,18 @@ def main(argv=None) -> None:
         fail(f"resumed train app: iteration {resumed.iteration}, parameters "
              f"not finite")
     resumed_loss = float(resumed.last_metrics["loss"])
+    bad = differing(training_state(resumed), training_state(trainer))
     print(f"[smoke] train app checkpoints {[c.stat().st_size for c in ckpts]} "
           f"bytes, trace {trace.stat().st_size} bytes; resumed from "
           f"{ckpts[0].name} to {resumed.iteration} in {resume_wall:.1f} s, "
           f"alive {resumed.gaussians.num_alive} (uninterrupted "
           f"{trainer.gaussians.num_alive}), last loss {resumed_loss!r} "
-          f"(uninterrupted {loss!r}, bit-equal {resumed_loss == loss})")
-    if (abs(resumed_loss - loss) > RESUME_RTOL * abs(loss)
-            or resumed.gaussians.num_alive != trainer.gaussians.num_alive):
-        fail(f"resumed train app: loss {resumed_loss!r} and alive "
-             f"{resumed.gaussians.num_alive}, uninterrupted {loss!r} and "
-             f"{trainer.gaussians.num_alive} (loss rtol {RESUME_RTOL})")
+          f"(uninterrupted {loss!r}); tensors not bit-equal: {bad}")
+    if bad:
+        fail(f"resumed train app is not bit-equal to the uninterrupted run "
+             f"in {bad}")
     del resumed
+    determinism_phase(trainer, "train-full geometry")
 
     # Steps timed through the trainer's own step functions (no maintenance
     # inside the window), then one geometry step profiled.
@@ -1011,6 +1304,10 @@ def main(argv=None) -> None:
         "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
         trainer.pipe.chunk, trainer.instance_cap, 5)
 
+    del trainer
+    material_kernels, mat_launches = material_path(root, train_dir, argv,
+                                                   card, dev)
+
     # --- phase 7: the quality gate at the JAX package's smoke scale ---------
     q, gate, q_launches = quality_path(root / "quality", card)
 
@@ -1022,11 +1319,15 @@ def main(argv=None) -> None:
         "quality-smoke", gate.gaussians, gate.scene.train_cameras[0],
         gate.pipe.chunk, gate.instance_cap, 5)
 
+    # --- phase 9: the material gate at smoke scale ---------------------------
+    material_gate_path(root / "material_gate", card)
+
     # One record per kernel and path, each from the kernel phase run at that
     # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
     # quality cell are checked above, but their paths do not launch them
-    # (the V=16 backward is the material stage's; the gate's trim would
-    # fire at 1,000), so they have no record here.
+    # (the render app takes no backward; the gate's trim would fire at
+    # 1,000), so they have no record here. The material cell's records are
+    # K1 and K2 at V=16, with their V=16 launches.
     replaces = {"blend_fwd": 125, "blend_bwd": 322, "blend_obs": 227}
     records = []
     for cell, reports, path_launches in (
@@ -1035,7 +1336,8 @@ def main(argv=None) -> None:
              launches),
             ("quality-smoke", {k: quality_kernels[k]
                                for k in ("blend_fwd", "blend_bwd")},
-             q_launches)):
+             q_launches),
+            ("train-material", material_kernels, mat_launches)):
         for name, rep in reports.items():
             records.append({
                 "name": name, "cell": cell, "route": "cuda",
@@ -1044,7 +1346,8 @@ def main(argv=None) -> None:
                 "launches": path_launches[name],
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                 "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"], "library_ms": None})
+                "bound_by": rep["bound_by"], "library_ms": None,
+                "V": rep.get("V")})
     print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

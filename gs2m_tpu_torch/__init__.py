@@ -15,6 +15,12 @@ import torch
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# A training step is reproducible bit for bit, as the JAX package's is: cuDNN
+# picks deterministic convolution algorithms (the SSIM blur's backward), and
+# no autotuner choice changes them between runs. Float gathers with gradient
+# go through ops/gather.py, whose backward uses no atomics.
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 __version__ = "0.1.0"
 

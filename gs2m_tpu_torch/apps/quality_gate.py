@@ -218,6 +218,9 @@ def main(argv=None) -> dict:
                     help="with --production: the same code path at 120x90, "
                          "8 views, 600 iterations with a compressed schedule")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--profile_iterations", nargs=2, type=int, default=None,
+                    metavar=("START", "STOP"),
+                    help="passed to the train app: a profiler window")
     args = ap.parse_args(argv)
 
     if args.production:
@@ -276,11 +279,14 @@ def main(argv=None) -> dict:
                        "--opacity_reset_interval", "3000"]
         test_iters = (1000, 2000, 3000, args.iterations)
     dev_flags = ["--device", args.device]
+    prof_flags = (["--profile_iterations", *map(str, args.profile_iterations)]
+                  if args.profile_iterations else [])
 
     t0 = time.time()
     train_app.main(
         ["-s", scene_dir, "-m", model_dir, "--eval", "-r", "1",
          "--iterations", str(args.iterations), *stage_flags, *dev_flags,
+         *prof_flags,
          "--test_iterations", *map(str, test_iters),
          "--save_iterations", str(args.iterations),
          "--checkpoint_iterations", *map(str, test_iters)])
@@ -300,7 +306,8 @@ def main(argv=None) -> dict:
         metrics = json.load(f)
 
     # Held-out PSNR trajectory + capacity stats from the train log.
-    test_psnrs, peak_points, final_points, mv_active = [], 0, 0, None
+    test_psnrs, peak_points, final_points = [], 0, 0
+    mv_active = rough_active = None
     with open(os.path.join(model_dir, "train_log.jsonl")) as log:
         for line in log:
             rec = json.loads(line)
@@ -310,6 +317,7 @@ def main(argv=None) -> dict:
                 peak_points = max(peak_points, rec["points"])
                 final_points = rec["points"]
             mv_active = rec.get("mv_active", mv_active)
+            rough_active = rec.get("rough_active", rough_active)
 
     result = {
         "scene": "synthetic_sphere_noise" if args.production
@@ -325,7 +333,7 @@ def main(argv=None) -> dict:
         "peak_points": peak_points,
         "final_points": final_points,
         "mv_active_steps": mv_active,
-        "rough_active_steps": None,  # no material stage in the port yet
+        "rough_active_steps": rough_active,
         "mesh": mesh,
     }
     with open(os.path.join(args.out, "quality_gate.json"), "w") as f:

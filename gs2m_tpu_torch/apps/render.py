@@ -8,11 +8,14 @@ the views' depths (zeroed by --filter_depth's grazing-angle test) and the
 colors read back from the saved render PNGs into a block-sparse TSDF,
 extracts the mesh (tsdf_mesh.ply) and keeps its --num_clusters largest
 clusters (tsdf_post.ply); --dtu, --tnt and --blender set the datasets'
-presets (TnT bounds from transforms.json's aabb_range). Runs on CUDA
-(default) or, when asked, on the CPU.
+presets (TnT bounds from transforms.json's aabb_range). A material model
+(its snapshot's lighting.pkl, the JAX package's format too) renders its
+PBR image as the render, writes the albedo / roughness / metallic /
+diffuse / specular maps beside it and the light as envmap.png. Runs on
+CUDA (default) or, when asked, on the CPU.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
---spatial > 1 ("Parallelism"), material models ("Material stage").
+--spatial > 1 ("Parallelism").
 
 Usage: python -m gs2m_tpu_torch.apps.render -m <model_dir> [--dtu|--tnt|--blender]
 """
@@ -89,9 +92,12 @@ def extract_mesh(args, scene_extent: float, mesh_dir: Path, cameras,
 
 def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
                  cameras, camera_infos, gt_images, alpha_masks, iteration,
-                 bounds=None) -> tuple[list[dict], dict | None]:
+                 bounds=None, light_state=None
+                 ) -> tuple[list[dict], dict | None]:
     """Render and save every view of one split, then (--extract_mesh) its
-    mesh; returns the per-view stats and extract_mesh's record or None."""
+    mesh; returns the per-view stats and extract_mesh's record or None.
+    With a material model (`light_state`, the (6, R, R, 3) light) the
+    render is the PBR pass's, and the material maps are written too."""
     from gs2m_tpu_torch.models.render import render
     from gs2m_tpu_torch.utils.images import (convert_normal_for_save,
                                              save_depth_colormap, save_image,
@@ -103,6 +109,9 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
 
     base = Path(model_cfg.model_path) / split / f"{args.label}_{iteration}"
     dirs = {k: base / k for k in ["render", "gt", "normal", "depth"]}
+    if model_cfg.material:
+        dirs.update({k: base / k for k in
+                     ["albedo", "roughness", "metallic", "diffuse", "specular"]})
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
 
@@ -117,6 +126,17 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
     instance_cap = max(int(8 * gaussians.capacity) // pipe.chunk * pipe.chunk,
                        4 * pipe.chunk)
     need_sobel = args.filter_depth or args.normal_sobel
+    mips = None
+    if model_cfg.material:
+        from gs2m_tpu_torch.pbr import cubemap as cmod
+        from gs2m_tpu_torch.pbr import shade as smod
+        brdf_lut = smod.get_brdf_lut(device)
+        with torch.no_grad():
+            envmap = cmod.cubemap_to_latlong(light_state, (256, 512))
+            # The light is prefiltered once for every view.
+            mips = cmod.build_mips(light_state)
+        save_image(base / "envmap.png",
+                   np.clip(envmap.cpu().numpy(), 0, 1).transpose(2, 0, 1))
 
     def render_one(cam):
         nonlocal instance_cap
@@ -169,7 +189,12 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
                 tsdf_depth = torch.where(ang > 100.0 / 180.0 * np.pi, 0.0,
                                          tsdf_depth)
             fusion_depths.append(tsdf_depth)
-        save_image(dirs["render"] / f"{stem}.png", np.clip(host["render"], 0, 1))
+        if not model_cfg.material:
+            save_image(dirs["render"] / f"{stem}.png",
+                       np.clip(host["render"], 0, 1))
+        else:
+            save_material_maps(model_cfg, dirs, stem, cam, pkg, light_state,
+                               brdf_lut, mips, bg, alpha_masks, i)
         stats.append({"view": stem, "render_s": render_s,
                       "export_s": time.perf_counter() - t0 - render_s,
                       "instance_cap": instance_cap,
@@ -183,6 +208,46 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
                             camera_infos, dirs["render"], fusion_depths,
                             alpha_masks, bounds)
     return stats, mesh
+
+
+@torch.no_grad()
+def save_material_maps(model_cfg, dirs, stem, cam, pkg, light_state,
+                       brdf_lut, mips, bg, alpha_masks, i: int) -> None:
+    """The PBR render of one view (its surface mask, or the GT mask with
+    --mask_gt / a white background, filled with 0 or the background) and
+    the albedo / roughness / metallic maps and the diffuse / specular shade
+    composites (sRGB with --gamma)."""
+    from gs2m_tpu_torch.pbr import linear_to_srgb
+    from gs2m_tpu_torch.pbr.render import pbr_render
+    from gs2m_tpu_torch.utils.images import save_image
+
+    ppkg = pbr_render(light_state, cam, pkg, brdf_lut,
+                      metallic_trained=model_cfg.metallic,
+                      gamma=model_cfg.gamma, mips=mips)
+    pbr_img = np.clip(ppkg["render_rgb"].cpu().numpy(), 0, 1).transpose(2, 0, 1)
+    bg_np = bg.cpu().numpy()[:, None, None]
+    if model_cfg.mask_gt or model_cfg.white_background:
+        mask = (alpha_masks[i] > 0.5 if alpha_masks is not None
+                else pkg["normal_mask"].cpu().numpy())
+        fill = 0.0 if model_cfg.mask_gt else bg_np
+    else:
+        mask = pkg["normal_mask"].cpu().numpy()
+        fill = bg_np
+    save_image(dirs["render"] / f"{stem}.png", np.where(mask, pbr_img, fill))
+
+    def comp(x):
+        if model_cfg.gamma:
+            x = linear_to_srgb(x)
+        return np.clip(x.cpu().numpy(), 0, 1).transpose(2, 0, 1)
+
+    save_image(dirs["albedo"] / f"{stem}.png",
+               np.clip(pkg["albedo_map"].cpu().numpy(), 0, 1))
+    save_image(dirs["roughness"] / f"{stem}.png",
+               ppkg["roughness_map"].cpu().numpy())
+    save_image(dirs["metallic"] / f"{stem}.png",
+               ppkg["metallic_map"].cpu().numpy())
+    save_image(dirs["diffuse"] / f"{stem}.png", comp(ppkg["diffuse_rgb"]))
+    save_image(dirs["specular"] / f"{stem}.png", comp(ppkg["specular_rgb"]))
 
 
 def main(argv=None) -> dict:
@@ -248,10 +313,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--spatial > 1 is not ported yet: ROADMAP.md Queue A, "
             "'Parallelism'")
-    if model_cfg.material:
-        raise NotImplementedError(
-            "material models are not ported yet: ROADMAP.md Queue A, "
-            "'Material stage'")
     device = resolve_device(args.device)
 
     from gs2m_tpu_torch.core.gaussians import Gaussians
@@ -267,6 +328,12 @@ def main(argv=None) -> dict:
     print(f"[>] Loading snapshot at iteration {iteration}")
     raw = load_gaussian_ply(str(load_dir / "point_cloud.ply"))
     gaussians = Gaussians.from_raw(raw, model_cfg.sh_degree, device=device)
+    light_state = None
+    if model_cfg.material:
+        import pickle
+        with open(load_dir / "lighting.pkl", "rb") as f:
+            light_state = torch.as_tensor(np.asarray(pickle.load(f),
+                                                     np.float32)).to(device)
 
     scene = Scene(model_cfg, shuffle=False, load_images=False, device=device)
 
@@ -292,7 +359,7 @@ def main(argv=None) -> dict:
         stats, mesh = render_views(model_cfg, pipe, args,
                                    scene.cameras_extent, gaussians, split,
                                    cams, infos, gt, am, iteration,
-                                   split_bounds)
+                                   split_bounds, light_state)
         out["views"] += stats
         if mesh is not None:
             out["meshes"][split] = mesh

@@ -1,4 +1,4 @@
-"""Training CLI: the warmup and geometry stages.
+"""Training CLI: the warmup, geometry and (--material) material stages.
 
 Port of gs2m_tpu/apps/train.py: the same flag surface (model, pipeline and
 optimization groups, test/save iteration lists), the same staging
@@ -7,12 +7,13 @@ every 100 iterations, PLY snapshots at the save iterations, versioned
 checkpoints (checkpoints/ckp{it}.pkl at --checkpoint_iterations, resumed
 with --start_checkpoint) and a torch.profiler trace (--profile_iterations
 START STOP: opened before iteration START and closed after iteration STOP,
-as the JAX package's window, written under <model>/profile/). Runs on
-CUDA (default) or, when asked, on the CPU.
+as the JAX package's window, written under <model>/profile/). --material
+trains the material stage (from geometry_from_iter on) against a learned
+cubemap light and writes lighting.pkl with each snapshot. Runs on CUDA
+(default) or, when asked, on the CPU.
 
 Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
---data_parallel and --distributed ("Parallelism"), material models
-("Material stage").
+--data_parallel and --distributed ("Parallelism").
 
 Usage: python -m gs2m_tpu_torch.apps.train -s <scene> -m <out> [--iterations N]
 """
@@ -30,26 +31,91 @@ import torch
 
 def start_profiler(device: torch.device):
     """A running torch.profiler session: CPU activity, and CUDA activity on
-    a card."""
+    a card. Syncs the device first so the window's wall starts clean."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
     profiler = profile(activities=activities)
     profiler.start()
+    profiler.t0 = time.perf_counter()
     return profiler
 
 
+def profile_summary(profiler, wall_ms: float, top: int = 25) -> dict:
+    """The window's device time by kernel (self time, from key_averages;
+    the device spans of profiler ranges are not kernels), its sum (busy
+    ms), launches, the idle share of the profiled wall and the train steps'
+    device time by stage (step_stages)."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:90])
+                   for e in profiler.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+            "launches": sum(r[1] for r in rows),
+            "stages": step_stages(profiler, busy),
+            "kernels": [{"ms": ms, "count": n, "name": name}
+                        for ms, n, name in rows[:top]]}
+
+
+def step_stages(profiler, busy_ms: float) -> dict:
+    """Device ms of the profiled train steps by stage, from the ranges of
+    train/trainer.py::make_train_step: "render" (the step's renders),
+    "pbr" (the PBR pass with build_mips), "losses" (the rest of the
+    forward), "backward" (what step/backward launches, and every kernel
+    launched on the autograd engine's own threads, where a card's backward
+    runs), "update" (densification statistics and Adam), "light" (the
+    light's Adam step) and "other" (the rest of `busy_ms`: work outside
+    the steps). Empty when the window holds no step."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in profiler.events() if e.device_type == DeviceType.CPU]
+    steps = {e.thread for e in ev if e.name == "step/forward"}
+    if not steps:
+        return {}
+
+    def ms(name):
+        return sum(e.device_time_total for e in ev if e.name == name) / 1e3
+
+    engine = sum(e.device_time_total for e in ev
+                 if e.cpu_parent is None and e.thread not in steps) / 1e3
+    out = {"render": ms("step/render"), "pbr": ms("step/pbr")}
+    out["losses"] = ms("step/forward") - out["render"] - out["pbr"]
+    out["backward"] = ms("step/backward") + engine
+    out["update"] = ms("step/update")
+    out["light"] = ms("step/light")
+    out["other"] = busy_ms - sum(out.values())
+    return out
+
+
 def stop_profiler(profiler, device: torch.device, out_dir: str, window):
-    """Sync the device, close the session and write its Chrome trace."""
+    """Sync the device, close the session, write its Chrome trace and, on a
+    card, its summary (summary_<start>_<stop>.json: busy ms, idle share of
+    the profiled wall, launches, the top kernels by device time)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - profiler.t0) * 1e3
     profiler.stop()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"trace_{window[0]}_{window[1]}.json")
     profiler.export_chrome_trace(path)
     print(f"[>] profile trace written to {path}")
+    if device.type == "cuda":
+        summary = profile_summary(profiler, wall_ms)
+        with open(os.path.join(out_dir, f"summary_{window[0]}_{window[1]}"
+                               ".json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"[>] profile {window[0]}..{window[1]}: device busy "
+              f"{summary['busy_ms']:.2f} ms of {wall_ms:.2f} ms wall (idle "
+              f"share {summary['idle_share']:.3f}, under the profiler), "
+              f"{summary['launches']} launches")
 
 
 def main(argv=None):
@@ -86,10 +152,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--data_parallel and --distributed are not ported yet: "
             "ROADMAP.md Queue A, 'Parallelism'")
-    if model_cfg.material:
-        raise NotImplementedError(
-            "the material stage is not ported yet: ROADMAP.md Queue A, "
-            "'Material stage'")
     device = resolve_device(args.device)
 
     from gs2m_tpu_torch.data.scene import Scene
@@ -106,7 +168,11 @@ def main(argv=None):
           f"test views at {scene.train_cameras[0].width}x"
           f"{scene.train_cameras[0].height}; extent {scene.cameras_extent:.3f}")
     reporter = TrainingReporter(model_cfg.model_path, enable=not args.quiet)
-    trainer = Trainer(model_cfg, pipe, opt, scene)
+    pbr_fns = None
+    if model_cfg.material:
+        from gs2m_tpu_torch.pbr import make_pbr_fns
+        pbr_fns = make_pbr_fns(device=device)
+    trainer = Trainer(model_cfg, pipe, opt, scene, pbr_fns=pbr_fns)
     if args.start_checkpoint:
         trainer.load_checkpoint(args.start_checkpoint)
         print(f"[>] Resumed from {args.start_checkpoint} at iteration "
@@ -149,11 +215,13 @@ def main(argv=None):
                 if not args.quiet:
                     print(f"[{it:>6}] loss {ema:.5f} Lrgb "
                           f"{float(metrics['Lrgb']):.5f} Lgeo "
-                          f"{float(metrics['Lgeo']):.5f} points {alive} "
+                          f"{float(metrics['Lgeo']):.5f} Lmat "
+                          f"{float(metrics['Lmat']):.5f} points {alive} "
                           f"({it / dt:.1f} it/s)", flush=True)
                 rec = {"iteration": it, "loss": ema, "points": alive,
                        "elapsed_s": dt, "dropped": int(metrics["dropped"]),
-                       "mv_active": trainer.mv_active_count}
+                       "mv_active": trainer.mv_active_count,
+                       "rough_active": trainer.rough_active_count}
                 if trainer.last_trim_seconds is not None:
                     rec["trim_s"] = round(trainer.last_trim_seconds, 2)
                 log_file.write(json.dumps(rec) + "\n")
@@ -166,6 +234,8 @@ def main(argv=None):
                                      scene.gt_images[:5], log_images_to=reporter,
                                      iteration=it, tag="train")
                 line = f"[ITER {it:>6}] train PSNR {res['psnr']:.2f}"
+                if "psnr_pbr" in res:
+                    line += f" (PBR {res['psnr_pbr']:.2f})"
                 if scene.test_cameras:
                     tres = evaluate_views(trainer, scene.test_cameras,
                                           scene.load_test_images(),
@@ -174,12 +244,16 @@ def main(argv=None):
                     line += (f"  test PSNR {tres['psnr']:.2f} L1 "
                              f"{tres['l1']:.4f} ({len(scene.test_cameras)} "
                              f"views)")
-                    reporter.scalars(it, {"test_psnr": tres["psnr"],
-                                          "test_l1": tres["l1"]},
-                                     trainer.gaussians.num_alive)
-                    log_file.write(json.dumps({"iteration": it,
-                                               "test_psnr": tres["psnr"],
-                                               "test_l1": tres["l1"]}) + "\n")
+                    scal = {"test_psnr": tres["psnr"], "test_l1": tres["l1"]}
+                    if "psnr_pbr" in tres:
+                        # The material stage's quality signal is the PBR
+                        # render.
+                        line += f"  test PSNR(PBR) {tres['psnr_pbr']:.2f}"
+                        scal.update(test_psnr_pbr=tres["psnr_pbr"],
+                                    test_l1_pbr=tres["l1_pbr"])
+                    reporter.scalars(it, scal, trainer.gaussians.num_alive)
+                    log_file.write(json.dumps({"iteration": it, **scal})
+                                   + "\n")
                     log_file.flush()
                 trainer.last_eval = res
                 print(line)

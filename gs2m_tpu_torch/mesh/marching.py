@@ -16,7 +16,8 @@ size), as numpy promotes them there, and so is the weld key
 round(p / (voxel * 1e-4)): in f32, different vertices would weld. The
 weld keys are ranked lexicographically like np.unique(axis=0) (three
 stable radix sorts, `_unique_rows`), and the welded vertices average in
-float64, so `faces` come out equal to the JAX package's.
+float64 (each vertex's copies summed in input order, no float atomics), so
+`faces` come out equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from gs2m_tpu_torch.mesh.tsdf import (BLOCK_EDGE, TSDFVolume, block_keys,
                                       stage_timer)
+from gs2m_tpu_torch.ops.gather import GatherPlan, scatter_rows
 
 # Cube corners numbered by bits: x -> 1, y -> 2, z -> 4.
 _CUBE_OFFSETS = np.array([[x, y, z] for z in (0, 1) for y in (0, 1)
@@ -173,9 +175,11 @@ def _slab_triangles(vol: TSDFVolume, start: int, stop: int, nbr,
 
 
 def _unique_rows(q: torch.Tensor):
-    """(N, 3) int64 -> (unique rows in lexicographic order, inverse (N,)),
-    as np.unique(q, axis=0, return_inverse=True) gives them: stable sorts by
-    the last column, then the middle, then the first."""
+    """(N, 3) int64 -> (unique rows in lexicographic order, inverse (N,),
+    GatherPlan), the first two as np.unique(q, axis=0, return_inverse=True)
+    gives them: stable sorts by the last column, then the middle, then the
+    first. The plan is the stable sort that groups each unique row's copies
+    in input order, and the group sizes."""
     order = torch.sort(q[:, 2], stable=True).indices
     for c in (1, 0):
         order = order[torch.sort(q[order, c], stable=True).indices]
@@ -184,7 +188,10 @@ def _unique_rows(q: torch.Tensor):
     new[1:] = (s[1:] != s[:-1]).any(1)
     inv = torch.empty_like(order)
     inv[order] = torch.cumsum(new, 0) - 1
-    return s[new], inv
+    starts = torch.nonzero(new)[:, 0]
+    lengths = torch.diff(starts, append=starts.new_full((1,), s.shape[0]))
+    return s[new], inv, GatherPlan(idx=inv, shape=tuple(inv.shape),
+                                   order=order, lengths=lengths)
 
 
 def _weld(tri_pts: torch.Tensor, tri_col: torch.Tensor, voxel_size: float):
@@ -194,16 +201,13 @@ def _weld(tri_pts: torch.Tensor, tri_col: torch.Tensor, voxel_size: float):
     quantum = torch.tensor(voxel_size * 1e-4, dtype=torch.float64,
                            device=flat.device)
     quant = torch.round(flat / quantum).to(torch.int64)
-    uniq, inv = _unique_rows(quant)
-    U = uniq.shape[0]
-    f64 = dict(dtype=torch.float64, device=flat.device)
-    verts = torch.zeros(U, 3, **f64).index_add_(0, inv, flat)
-    cols = torch.zeros(U, 3, **f64).index_add_(
-        0, inv, tri_col.reshape(-1, 3).to(torch.float64))
-    cnt = torch.zeros(U, **f64).index_add_(
-        0, inv, torch.ones(inv.shape[0], **f64))
-    verts = (verts / cnt[:, None]).to(torch.float32)
-    cols = (cols / cnt[:, None]).to(torch.float32)
+    uniq, inv, rows = _unique_rows(quant)
+    # Each vertex's copies summed in input order (no float atomics, as
+    # index_add_ would use on the card): the same bits on every run.
+    cnt = rows.lengths.to(torch.float64)[:, None]
+    verts = (scatter_rows(flat, rows) / cnt).to(torch.float32)
+    cols = (scatter_rows(tri_col.reshape(-1, 3).to(torch.float64), rows)
+            / cnt).to(torch.float32)
     faces = inv.reshape(-1, 3)
     good = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
             & (faces[:, 0] != faces[:, 2]))

@@ -1,14 +1,16 @@
 """Training losses: photometric, geometric (PGSR-style multi-view), TV.
 
-Port of gs2m_tpu/models/losses.py for the warmup and geometry stages. All
-losses are functions of rendered map dicts; the trainer renders the
-neighbor view and passes both packages in. The multi-view NCC term draws a
-FIXED number of pixels among the valid ones (top-k over random scores);
-the draw comes from a torch.Generator, or tests pass the JAX package's
-indices in (`indices`), since the two frameworks' random streams differ.
+Port of gs2m_tpu/models/losses.py for the three stages. All losses are
+functions of rendered map dicts; the trainer renders the neighbor view and
+passes both packages in. The multi-view NCC term and the material stage's
+roughness-from-reflection term draw a FIXED number of pixels among the
+valid ones (top-k over random scores); the draw comes from a
+torch.Generator, or tests pass the JAX package's indices in (`indices`),
+since the two frameworks' random streams differ.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -196,8 +198,9 @@ def _patch_warp(Hmat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return out[..., :2] / _safe_div_z(out[..., 2:], 1e-6)
 
 
-def _ncc(ref: torch.Tensor, nea: torch.Tensor):
-    """Patch NCC. ref/nea: (N, P) -> (ncc, ncc < 0.9)."""
+def _ncc(ref: torch.Tensor, nea: torch.Tensor, std_mask: bool = False):
+    """Patch NCC. ref/nea: (N, P) -> (ncc, ncc < 0.9), or with `std_mask`
+    (ncc, std(ref) < 0.01): the flat reference patches."""
     tps = ref.shape[1]
     ref_sum = torch.sum(ref, dim=1)
     nea_sum = torch.sum(nea, dim=1)
@@ -211,7 +214,27 @@ def _ncc(ref: torch.Tensor, nea: torch.Tensor):
     nea_var = nea2_sum - nea_avg * nea_sum
     cc = cross * cross / (ref_var * nea_var + 1e-8)
     ncc = torch.clamp(1.0 - cc, 0.0, 2.0)
+    if std_mask:
+        return ncc, torch.sqrt(torch.clamp_min(ref_var, 0.0)) < 0.01
     return ncc, ncc < 0.9
+
+
+@functools.cache
+def _sobel_x(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The (1, 1, 3, 3) Sobel x kernel on `device`, copied there once (a
+    copy per call would wait for the card)."""
+    return torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]],
+                        dtype=dtype).reshape(1, 1, 3, 3).to(device)
+
+
+def _patch_gradient(patch: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Sobel magnitude over (N, P) patches."""
+    n = patch.shape[0]
+    x = patch.reshape(n, 1, patch_size, patch_size)
+    sx = _sobel_x(patch.device, patch.dtype)
+    gx = F.conv2d(x, sx, padding=1)
+    gy = F.conv2d(x, sx.transpose(-1, -2), padding=1)
+    return torch.sqrt(gx ** 2 + gy ** 2 + 1e-6).reshape(n, -1)
 
 
 def sample_valid_indices(generator: torch.Generator | None,
@@ -310,3 +333,72 @@ def multi_view_loss(cfg, cam, nearest_cam, render_pkg: dict, nearest_pkg: dict,
     total = (cfg.multi_view_geo_weight * geo_loss
              + cfg.multi_view_ncc_weight * ncc_loss)
     return MultiViewOut(loss=total, geo_loss=geo_loss, ncc_loss=ncc_loss)
+
+
+def _nearby_homography(cam, nearby_cam, render_pkg: dict, idx: torch.Tensor,
+                       ncc_scale: float) -> torch.Tensor:
+    """Per-pixel homographies ref -> nearby from the rendered plane at the
+    sampled pixels: H = K_n (R - t n^T / d) K_ref^-1, (k, 3, 3)."""
+    rn_R = nearby_cam.world_view[:3, :3].T @ cam.world_view[:3, :3]
+    rn_t = -rn_R @ cam.world_view[3, :3] + nearby_cam.world_view[3, :3]
+    local_n = render_pkg["local_normal_map"].permute(1, 2, 0).reshape(-1, 3)[idx]
+    local_d = render_pkg["distance_map"][0].reshape(-1)[idx]
+    H_rn = rn_R[None] - (rn_t[None, :, None] @ local_n[:, None, :]) / \
+        _safe_div_z(local_d[:, None, None], 1e-6)
+    return (nearby_cam.get_K(ncc_scale)[None] @ H_rn
+            @ cam.get_inv_K(ncc_scale)[None])
+
+
+def roughness_loss(cfg, cam, nearby_cam, render_pkg: dict, nearby_pkg: dict,
+                   gray_ref: torch.Tensor, gray_nea: torch.Tensor,
+                   ncc_scale: float = 1.0,
+                   generator: torch.Generator | None = None,
+                   indices: torch.Tensor | None = None) -> torch.Tensor:
+    """Roughness-from-reflection supervision: the NCC error against a nearby
+    view (all without gradient) pushes the sampled roughness up where the
+    views disagree photometrically and down where they agree: the mean over
+    the masked pixels of tanh(8 (ncc - threshold)) * roughness. The pixel
+    sample comes from `generator`, or is given as `indices` (k,)."""
+    H, W = cam.height, cam.width
+    dev = render_pkg["depth_map"].device
+    with torch.no_grad():
+        iy, ix = torch.meshgrid(
+            torch.arange(H, dtype=torch.float32, device=dev),
+            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+        pixels = torch.stack([ix, iy], -1)
+
+        pts = points_from_depth(cam, render_pkg["depth_map"])
+        pts_in_nearby = nearby_cam.world_to_cam(pts)
+        map_z, _, valid, _ = sample_depth_normal(
+            pts_in_nearby, nearby_cam, nearby_pkg["depth_map"],
+            nearby_pkg["normal_map"])
+        valid = valid & (pts_in_nearby[:, 2] - map_z
+                         <= cfg.mv_occlusion_threshold)
+
+        k = min(cfg.multi_view_sample_num, H * W)
+        idx = (sample_valid_indices(generator, valid, k) if indices is None
+               else indices.to(dev).long())
+        pick_valid = valid[idx]
+
+        pix = pixels.reshape(-1, 2)[idx]
+        half = cfg.multi_view_patch_size
+        patch_pix = pix[:, None, :] / ncc_scale + _patch_offsets(half, dev)[None]
+        ref_gray = _ref_patches(gray_ref, pix, half, ncc_scale)
+        H_rn = _nearby_homography(cam, nearby_cam, render_pkg, idx, ncc_scale)
+        nea_gray = sample_pixels(gray_nea, _patch_warp(H_rn, patch_pix))[..., 0]
+
+        patch_size = 2 * half + 1
+        ncc_grad, _ = _ncc(_patch_gradient(ref_gray, patch_size),
+                           _patch_gradient(nea_gray, patch_size))
+        ncc_gray, std_mask = _ncc(ref_gray, nea_gray, std_mask=True)
+        ncc_error = torch.where(std_mask, ncc_grad, ncc_gray)
+        ncc_error = torch.tanh(8.0 * (ncc_error - cfg.reflection_threshold))
+
+    # Sampling the roughness map at the identity grid is the pixel itself.
+    rough_vals = render_pkg["roughness_map"][0].reshape(-1)[idx]
+    rv = rough_vals.detach()
+    increase = (ncc_error < 0.0) & (rv <= 0.8)
+    decrease = (ncc_error > 0.0) & (rv > 0.08)
+    mf = ((increase | decrease) & pick_valid).to(rough_vals.dtype)
+    return (torch.sum(ncc_error * rough_vals * mf)
+            / torch.clamp_min(torch.sum(mf), 1.0))

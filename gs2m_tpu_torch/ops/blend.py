@@ -140,6 +140,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -158,8 +159,17 @@ ALPHA_MIN = float(np.float32(1.0 / 255.0))
 RETIRE_MARGIN = 1e-4
 LOG_RETIRE = float(np.float32(LOG_HALF - RETIRE_MARGIN))
 
-# Launches of each kernel of this module: one per launch, nowhere else.
-LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0, "blend_obs": 0}
+# Launches of each kernel of this module, keyed by (kernel, value width V;
+# 0 for K3, which blends no value rows): one per launch, nowhere else.
+LAUNCHES: Counter = Counter()
+
+
+def launch_counts() -> dict[str, int]:
+    """LAUNCHES summed over the value widths, by kernel."""
+    out = dict.fromkeys(("blend_fwd", "blend_bwd", "blend_obs"), 0)
+    for (name, _), n in LAUNCHES.items():
+        out[name] += n
+    return out
 
 # Null slots per segment of the per-Gaussian reduction (see segment_sum).
 NULL_RUN = 256
@@ -463,9 +473,9 @@ def _check(kernel: str, tile: int, chunk: int, V: int, specs) -> None:
                              f"(staged with 16-byte cp.async copies)")
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, V: int = 0) -> None:
     """Call the kernel's C entry on the current stream; raise on a refused
-    launch. Pointers are given as tensors."""
+    launch. Pointers are given as tensors; `V` the value width counted."""
     fn = _kernel(name)
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
     with torch.cuda.device(dev):
@@ -474,7 +484,7 @@ def _launch(name: str, *args) -> None:
                    for a in args], stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name, V] += 1
 
 
 def _tile_bounds(chunk_tile: torch.Tensor, T: int) -> torch.Tensor:
@@ -501,7 +511,7 @@ def _launch_blend_fwd(geom, vals, chunk_tile, *, T, grid_x, width, height,
     obs = torch.empty(n_chunks, 1, chunk, dtype=torch.int32, device=dev)
     _launch("blend_fwd", geom, vals, _tile_bounds(chunk_tile, T), img, fT,
             clogT, cdone, obs, T, n_chunks, chunk, V, grid_x, width, height,
-            LOG_EPS, LOG_HALF, ALPHA_MIN)
+            LOG_EPS, LOG_HALF, ALPHA_MIN, V=V)
     return FwdRaw(img=img, fT=fT, clogT=clogT, cdone=cdone, obs=obs)
 
 
@@ -523,7 +533,7 @@ def _launch_blend_bwd(geom, vals, chunk_tile, clogT, cdone, g_img, gT, fT, *,
     dvals = torch.empty(V, I, device=geom.device)
     _launch("blend_bwd", geom, vals, _tile_bounds(chunk_tile, T), clogT,
             cdone, g_img, gT, fT, dgeom, dvals, T, n_chunks, chunk, V, grid_x,
-            width, height, LOG_EPS, ALPHA_MIN)
+            width, height, LOG_EPS, ALPHA_MIN, V=V)
     return BwdRaw(dgeom=dgeom, dvals=dvals)
 
 

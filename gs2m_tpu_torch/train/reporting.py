@@ -1,9 +1,10 @@
 """Training observability: TensorBoard scalars/images + periodic evaluation.
 
-Port of gs2m_tpu/train/reporting.py for the warmup and geometry stages:
-per-iteration loss/iter-time/point-count scalars, and at the test
-iterations PSNR and L1 over a view list with image grids and an opacity
-histogram. TensorBoard output goes through tensorboardX when it is
+Port of gs2m_tpu/train/reporting.py: per-iteration loss/iter-time/point-
+count scalars, and at the test iterations PSNR and L1 over a view list
+with image grids and an opacity histogram; in the material stage also the
+PBR render's PSNR and L1, the material and shade grids and the
+environment map. TensorBoard output goes through tensorboardX when it is
 installed; without it the reporter says so once and records nothing.
 """
 from __future__ import annotations
@@ -55,7 +56,7 @@ def _numpy(x) -> np.ndarray:
 
 
 @torch.no_grad()
-def _render_guarded(trainer, camera):
+def _render_guarded(trainer, camera, material_stage: bool = False):
     """One eval render that refuses to report on a silently truncated frame:
     while binning overflows (pkg['dropped'] > 0) the instance cap grows (the
     trainer's own policy) and the view is rendered again; bounded retries,
@@ -68,8 +69,8 @@ def _render_guarded(trainer, camera):
     bg = torch.zeros(3, device=trainer.device)
     for _ in range(4):
         pkg = render(trainer.gaussians, camera, bg, trainer.active_sh_degree,
-                     geometry_stage=True, instance_cap=trainer.instance_cap,
-                     **kw)
+                     geometry_stage=True, material_stage=material_stage,
+                     instance_cap=trainer.instance_cap, **kw)
         dropped = int(pkg["dropped"])
         if dropped == 0:
             return pkg
@@ -85,19 +86,51 @@ def _render_guarded(trainer, camera):
     return pkg
 
 
+@torch.no_grad()
 def evaluate_views(trainer, cameras, gt_images, n_views: int | None = None,
                    log_images_to: TrainingReporter | None = None,
                    iteration: int = 0, tag: str = "test") -> dict:
-    """PSNR and L1 over a view list, rendered with the trainer's state."""
+    """PSNR and L1 over a view list, rendered with the trainer's state. In
+    the material stage also the deferred PBR pass per view (psnr_pbr,
+    l1_pbr; albedo/roughness/metallic/PBR/diffuse/specular grids) and the
+    environment map, with the light prefiltered once for the whole list."""
+    material_stage = (trainer.pbr_fns is not None
+                      and trainer._stage_flags(trainer.iteration)[1])
+    mips = None
+    if material_stage:
+        from gs2m_tpu_torch.pbr import cubemap as cmod
+        from gs2m_tpu_torch.pbr.render import pbr_render
+        mips = cmod.build_mips(trainer.light_state)
+        if log_images_to is not None:
+            env = _numpy(cmod.cubemap_to_latlong(trainer.light_state,
+                                                 (256, 512)))
+            log_images_to.image(iteration, "scene/envmap",
+                                np.clip(env, 0, 1).transpose(2, 0, 1))
+
     n = len(cameras) if n_views is None else min(n_views, len(cameras))
-    psnrs, l1s = [], []
+    psnrs, l1s, psnrs_pbr, l1s_pbr = [], [], [], []
     for i in range(n):
-        pkg = _render_guarded(trainer, cameras[i])
+        pkg = _render_guarded(trainer, cameras[i], material_stage)
         img = np.clip(_numpy(pkg["render"]), 0, 1)
         gt = np.clip(_numpy(gt_images[i]), 0, 1)
         mse = float(np.mean((img - gt) ** 2))
         psnrs.append(20 * np.log10(1.0 / np.sqrt(max(mse, 1e-12))))
         l1s.append(float(np.mean(np.abs(img - gt))))
+
+        ppkg = None
+        if material_stage:
+            ppkg = pbr_render(trainer.light_state, cameras[i], pkg,
+                              trainer.pbr_fns["brdf_lut"],
+                              metallic_trained=trainer.model_cfg.metallic,
+                              gamma=trainer.model_cfg.gamma, mips=mips)
+            # The PBR image over the (zero) background outside the surface
+            # mask.
+            pbr_img = np.where(_numpy(pkg["normal_mask"]), np.clip(
+                _numpy(ppkg["render_rgb"]).transpose(2, 0, 1), 0, 1), 0.0)
+            mse_p = float(np.mean((pbr_img - gt) ** 2))
+            psnrs_pbr.append(20 * np.log10(1.0 / np.sqrt(max(mse_p, 1e-12))))
+            l1s_pbr.append(float(np.mean(np.abs(pbr_img - gt))))
+
         if log_images_to is not None and i < 5:
             log_images_to.image(iteration, f"{tag}_view_{i}/render", img)
             log_images_to.image(iteration, f"{tag}_view_{i}/gt", gt)
@@ -107,4 +140,19 @@ def evaluate_views(trainer, cameras, gt_images, n_views: int | None = None,
                                 ((d - lo) / (hi - lo + 1e-8))[None])
             log_images_to.image(iteration, f"{tag}_view_{i}/normal",
                                 _numpy(pkg["normal_map"]) * 0.5 + 0.5)
-    return {"psnr": float(np.mean(psnrs)), "l1": float(np.mean(l1s))}
+            if ppkg is not None:
+                hwc = lambda k: _numpy(ppkg[k]).transpose(2, 0, 1)
+                for name, im in (
+                        ("albedo", _numpy(pkg["albedo_map"])),
+                        ("roughness", _numpy(ppkg["roughness_map"])),
+                        ("metallic", _numpy(ppkg["metallic_map"])),
+                        ("z_pbr_render", pbr_img),
+                        ("z_shade_diffuse", hwc("diffuse_rgb")),
+                        ("z_shade_specular", hwc("specular_rgb"))):
+                    log_images_to.image(iteration, f"{tag}_view_{i}/{name}",
+                                        im)
+    res = {"psnr": float(np.mean(psnrs)), "l1": float(np.mean(l1s))}
+    if material_stage:
+        res["psnr_pbr"] = float(np.mean(psnrs_pbr))
+        res["l1_pbr"] = float(np.mean(l1s_pbr))
+    return res

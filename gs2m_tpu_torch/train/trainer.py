@@ -1,8 +1,10 @@
-"""Staged training loop: RGB warmup -> geometry.
+"""Staged training loop: RGB warmup -> geometry -> (optional) material.
 
-Port of gs2m_tpu/train/trainer.py for the warmup and geometry stages: per
-iteration a random view, the staged losses (L_rgb + plane + alpha; +
-multi-view and depth-normal in the geometry stage), densification every
+Port of gs2m_tpu/train/trainer.py: per iteration a random view, the staged
+losses (L_rgb + plane + alpha; + multi-view and depth-normal in the
+geometry stage; in the material stage, which starts with geometry, the
+PBR / smoothness / normal-TV / roughness losses in place of L_rgb, with
+the learned cubemap light stepped by its own Adam), densification every
 100 iterations in (densify_from_iter, densify_until_iter], the multi-view
 observe trim every 1000, opacity resets, an SH degree bump every 1000, and
 growth of the instance buffer on binning overflow (`dropped`).
@@ -17,12 +19,13 @@ package's own non-pair branch: two render() calls. Its backward compaction
 terminated. The flag stays in PipelineConfig for cfg_args.json
 compatibility and has no effect here, like `term_cut` and `use_pallas`.
 
-Randomness: host-side choices (the view order and each step's neighbor
-view) come from a numpy Generator seeded from `seed`, as the JAX package's
-view order does; device-side draws (the multi-view pixel sample, the split
-noise) from one torch.Generator on the device seeded from `seed`. Host
-syncs happen only at the 100-iteration boundaries (overflow check,
-densification) and at the trim.
+Randomness: host-side choices (the view order, each step's nearest view
+and, in the material stage, its nearby view) come from a numpy Generator
+seeded from `seed`, as the JAX package's view order does; device-side
+draws (the multi-view and roughness pixel samples, the split noise) from
+one torch.Generator on the device seeded from `seed`. Host syncs happen
+only at the 100-iteration boundaries (overflow check, densification) and
+at the trim; the loss-activity counters count host-side choices.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig, PipelineConfig
 from gs2m_tpu_torch.core.gaussians import Gaussians
@@ -54,8 +58,13 @@ def choose_neighbor(rng: np.random.Generator, table_row: np.ndarray,
 
 def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                         opt: OptimConfig, scene: Scene, instance_cap: int,
-                        geometry_stage: bool):
-    """The per-view staged loss as a function of the parameters."""
+                        geometry_stage: bool, material_stage: bool = False,
+                        pbr_fns: dict | None = None):
+    """The per-view staged loss as a function of the parameters (and, in
+    the material stage, of the light)."""
+    if material_stage and pbr_fns is None:
+        raise ValueError("the material stage needs pbr_fns "
+                         "(pbr.render.make_pbr_fns)")
     use_alpha_loss = model_cfg.white_background or model_cfg.mask_gt
     render_kw = dict(tile=pipe.tile, chunk=pipe.chunk,
                      instance_cap=instance_cap, z_depth=pipe.z_depth,
@@ -65,14 +74,19 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                        view_idx: int, nearest_idx: int, has_nearest: bool,
                        active_sh_degree: int,
                        generator: torch.Generator | None = None,
-                       mv_indices: torch.Tensor | None = None):
+                       mv_indices: torch.Tensor | None = None,
+                       light: torch.Tensor | None = None,
+                       nearby_idx: int = 0, has_nearby: bool = False):
         cam = scene.train_cameras[view_idx]
         gt = scene.gt_images[view_idx]
         bg = gt.new_zeros(3)
         g = gaussians.with_params(params)
-        pkg = render(g, cam, bg, active_sh_degree,
-                     geometry_stage=geometry_stage, sobel_normal=geometry_stage,
-                     m2d_sink=sink, m2d_abs_sink=abs_sink, **render_kw)
+        with record_function("step/render"):
+            pkg = render(g, cam, bg, active_sh_degree,
+                         geometry_stage=geometry_stage,
+                         material_stage=material_stage,
+                         sobel_normal=geometry_stage, m2d_sink=sink,
+                         m2d_abs_sink=abs_sink, **render_kw)
 
         rgb = L.clip(pkg["render"], 0.0, 1.0)
         Lrgb = L.rgb_loss(rgb, gt, opt.lambda_ssim)
@@ -81,14 +95,17 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
         if use_alpha_loss:
             loss = loss + opt.lambda_alpha * L.binary_cross_entropy(
                 pkg["alpha_map"], scene.alpha_masks[view_idx])
-        loss = loss + Lrgb
+        if not material_stage:
+            loss = loss + Lrgb
 
         Lgeo = gt.new_zeros(())
         dropped = pkg["dropped"]
         if geometry_stage:
             nearest_cam = scene.train_cameras[nearest_idx]
-            npkg = render(g, nearest_cam, bg, active_sh_degree,
-                          geometry_stage=True, **render_kw)
+            with record_function("step/render"):
+                npkg = render(g, nearest_cam, bg, active_sh_degree,
+                              geometry_stage=True,
+                              material_stage=material_stage, **render_kw)
             dropped = torch.maximum(dropped, npkg["dropped"])
             Ldn = L.depth_normal_loss(pkg["normal_map"], pkg["sobel_map"], gt)
             Lgeo = opt.lambda_depth_normal * Ldn
@@ -96,12 +113,22 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                 mv = L.multi_view_loss(
                     opt, cam, nearest_cam, pkg, npkg,
                     scene.gray_images[view_idx], scene.gray_images[nearest_idx],
-                    False, scene.ncc_scale, generator=generator,
+                    material_stage, scene.ncc_scale, generator=generator,
                     indices=mv_indices)
                 Lgeo = Lgeo + opt.lambda_multi_view * mv.loss
             loss = loss + Lgeo
 
-        aux = {"Lrgb": Lrgb, "Lgeo": Lgeo, "radii": pkg["radii"],
+        Lmat = gt.new_zeros(())
+        if material_stage:
+            Lmat, _ = pbr_fns["material_losses"](
+                g, cam, pkg, gt, light, opt, model_cfg,
+                scene.train_cameras[nearby_idx], has_nearby,
+                scene.gray_images[view_idx], scene.gray_images[nearby_idx],
+                scene.ncc_scale, active_sh_degree, render_kw,
+                generator=generator)
+            loss = loss + Lmat
+
+        aux = {"Lrgb": Lrgb, "Lgeo": Lgeo, "Lmat": Lmat, "radii": pkg["radii"],
                "observe": pkg["observe"],
                "visibility": pkg["visibility_filter"], "dropped": dropped}
         return loss, aux
@@ -111,39 +138,64 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
 
 def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
                     opt: OptimConfig, scene: Scene, instance_cap: int,
-                    geometry_stage: bool):
+                    geometry_stage: bool, material_stage: bool = False,
+                    pbr_fns: dict | None = None):
     """The step of one stage: loss, gradients, densification statistics and
-    the in-place Adam update."""
+    the in-place Adam update; in the material stage also the light's Adam
+    step (at opacity_lr, then clamped to >= 0), in place on `light` and
+    `light_opt_state`. Its stages are profiler ranges ("step/forward",
+    "step/render", "step/pbr", "step/backward", "step/update",
+    "step/light"), which apps/train.py::step_stages reads."""
     xyz_lr_fn = xyz_lr_schedule(opt, scene.cameras_extent)
     H = scene.train_cameras[0].height
     W = scene.train_cameras[0].width
     objective = make_view_objective(model_cfg, pipe, opt, scene, instance_cap,
-                                    geometry_stage)
+                                    geometry_stage, material_stage, pbr_fns)
 
     def step(gaussians: Gaussians, opt_state: AdamState, stats: D.DensifyStats,
              view_idx: int, nearest_idx: int, has_nearest: bool,
              iteration: int, active_sh_degree: int,
              generator: torch.Generator | None = None,
-             mv_indices: torch.Tensor | None = None):
-        C = gaussians.capacity
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in gaussians.params_dict().items()}
-        sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
-        abs_sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
-        loss, aux = objective(gaussians, params, sink, abs_sink, view_idx,
-                              nearest_idx, has_nearest, active_sh_degree,
-                              generator, mv_indices)
+             mv_indices: torch.Tensor | None = None,
+             light: torch.Tensor | None = None,
+             light_opt_state: AdamState | None = None,
+             nearby_idx: int = 0, has_nearby: bool = False):
+        with record_function("step/forward"):
+            C = gaussians.capacity
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in gaussians.params_dict().items()}
+            sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
+            abs_sink = gaussians.xyz.new_zeros(C, 2, requires_grad=True)
+            light_leaf = (light.detach().requires_grad_(True)
+                          if material_stage else None)
+            loss, aux = objective(gaussians, params, sink, abs_sink, view_idx,
+                                  nearest_idx, has_nearest, active_sh_degree,
+                                  generator, mv_indices, light_leaf,
+                                  nearby_idx, has_nearby)
         leaves = list(params.values()) + [sink, abs_sink]
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
-            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        stats = D.update_stats(stats, grads[-2], grads[-1], aux["visibility"],
-                               aux["radii"], aux["observe"], W, H)
-        lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
-        adam_update(gaussians.params_dict(), dict(zip(params, grads)),
-                    opt_state, lrs)
+        if material_stage:
+            leaves.append(light_leaf)
+        with record_function("step/backward"):
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if material_stage:
+            light_grad = grads.pop()
+        with record_function("step/update"):
+            stats = D.update_stats(stats, grads[-2], grads[-1],
+                                   aux["visibility"], aux["radii"],
+                                   aux["observe"], W, H)
+            lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
+            adam_update(gaussians.params_dict(), dict(zip(params, grads)),
+                        opt_state, lrs)
+        if material_stage:
+            with record_function("step/light"):
+                pbr_fns["light_update"](light, light_grad, light_opt_state,
+                                        opt.opacity_lr)
         metrics = {"loss": loss.detach(), "Lrgb": aux["Lrgb"].detach(),
-                   "Lgeo": aux["Lgeo"].detach(), "dropped": aux["dropped"],
-                   "mv_active": int(geometry_stage and has_nearest)}
+                   "Lgeo": aux["Lgeo"].detach(), "Lmat": aux["Lmat"].detach(),
+                   "dropped": aux["dropped"],
+                   "mv_active": int(geometry_stage and has_nearest),
+                   "rough_active": int(material_stage and has_nearby)}
         return gaussians, opt_state, stats, metrics
 
     return step
@@ -180,13 +232,17 @@ class Trainer:
     MAX_INSTANCE_CAP = 2 ** 26
 
     def __init__(self, model_cfg: ModelConfig, pipe: PipelineConfig,
-                 opt: OptimConfig, scene: Scene, seed: int = 0):
-        if model_cfg.material:
-            raise NotImplementedError(
-                "the material stage is not ported yet: ROADMAP.md Queue A, "
-                "'Material stage'")
+                 opt: OptimConfig, scene: Scene, seed: int = 0,
+                 pbr_fns: dict | None = None):
         self.model_cfg, self.pipe, self.opt, self.scene = model_cfg, pipe, opt, scene
         self.device = scene.device
+        # The material stage starts with geometry.
+        self.material_from_iter = (opt.geometry_from_iter if model_cfg.material
+                                   else opt.iterations)
+        if model_cfg.material and pbr_fns is None:
+            raise ValueError("the material stage needs pbr_fns "
+                             "(pbr.render.make_pbr_fns)")
+        self.pbr_fns = pbr_fns
 
         n0 = scene.info.points.shape[0]
         cap = max(2 ** int(np.ceil(np.log2(max(n0 * 4, 1024)))), 1024)
@@ -198,6 +254,12 @@ class Trainer:
         self.opt_state = adam_init(self.gaussians.params_dict())
         self.stats = D.DensifyStats.zeros(cap, self.device)
         self.active_sh_degree = 0
+        # The learned environment light and its own Adam state (None
+        # without the material stage).
+        self.light_state = self.light_opt_state = None
+        if model_cfg.material:
+            self.light_state = pbr_fns["init_light"]()
+            self.light_opt_state = pbr_fns["init_light_opt"](self.light_state)
 
         # Chunk alignment pads every nonempty tile to a chunk multiple, so the
         # instance buffer needs a per-tile floor on top of the per-Gaussian
@@ -215,6 +277,7 @@ class Trainer:
         self._dropped_window = torch.zeros((), dtype=torch.int32,
                                            device=self.device)
         self.mv_active_count = 0
+        self.rough_active_count = 0
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._view_pool: list[int] = []
@@ -235,16 +298,35 @@ class Trainer:
 
     # --- step dispatch ---------------------------------------------------------
 
-    def _geometry_stage(self, iteration: int) -> bool:
-        return iteration > self.opt.geometry_from_iter
+    def _stage_flags(self, iteration: int) -> tuple[bool, bool]:
+        # A model without the material stage stays without it past
+        # opt.iterations too (steps driven beyond the schedule).
+        return (iteration > self.opt.geometry_from_iter,
+                self.model_cfg.material and iteration > self.material_from_iter)
 
-    def _get_step(self, geometry_stage: bool):
-        key = (geometry_stage, self.gaussians.capacity, self.instance_cap)
+    def _get_step(self, geometry_stage: bool, material_stage: bool = False):
+        key = (geometry_stage, material_stage, self.gaussians.capacity,
+               self.instance_cap)
         if key not in self._steps:
             self._steps[key] = make_train_step(
                 self.model_cfg, self.pipe, self.opt, self.scene,
-                self.instance_cap, geometry_stage)
+                self.instance_cap, geometry_stage, material_stage,
+                self.pbr_fns)
         return self._steps[key]
+
+    def choose_views(self, material_stage: bool):
+        """The next view, its nearest view and, in the material stage, its
+        nearby view, all from the host rng: (view, nearest, has_nearest,
+        nearby, has_nearby)."""
+        scene = self.scene
+        view = self._next_view()
+        nearest, has_nearest = choose_neighbor(
+            self.rng, scene.nearest_table[view], scene.nearest_mask[view], view)
+        nearby, has_nearby = 0, False
+        if material_stage:
+            nearby, has_nearby = choose_neighbor(
+                self.rng, scene.nearby_table[view], scene.nearby_mask[view], 0)
+        return view, nearest, has_nearest, nearby, has_nearby
 
     def _next_view(self) -> int:
         if not self._view_pool:
@@ -261,21 +343,22 @@ class Trainer:
         if it % 1000 == 0 and self.active_sh_degree < self.gaussians.max_sh_degree:
             self.active_sh_degree += 1
 
-        geometry_stage = self._geometry_stage(it)
-        view = self._next_view()
-        nearest, has_nearest = choose_neighbor(
-            self.rng, self.scene.nearest_table[view],
-            self.scene.nearest_mask[view], view)
+        geometry_stage, material_stage = self._stage_flags(it)
+        view, nearest, has_nearest, nearby, has_nearby = self.choose_views(
+            material_stage)
         (self.gaussians, self.opt_state, self.stats,
-         metrics) = self._get_step(geometry_stage)(
+         metrics) = self._get_step(geometry_stage, material_stage)(
             self.gaussians, self.opt_state, self.stats, view, nearest,
-            has_nearest, it, self.active_sh_degree, self.generator)
+            has_nearest, it, self.active_sh_degree, self.generator,
+            light=self.light_state, light_opt_state=self.light_opt_state,
+            nearby_idx=nearby, has_nearby=has_nearby)
 
         # No silent caps: binning overflow grows the instance buffer. The
         # window max catches drop bursts between the boundary checks too.
         self._dropped_window = torch.maximum(self._dropped_window,
                                              metrics["dropped"])
         self.mv_active_count += metrics["mv_active"]
+        self.rough_active_count += metrics["rough_active"]
         if it % 100 == 0:
             dw = int(self._dropped_window)
             if dw > 0:
@@ -381,7 +464,9 @@ class Trainer:
     # --- persistence -------------------------------------------------------------
 
     def save_snapshot(self, iteration: int):
-        """PLY snapshot of the alive Gaussians, as the render app reads it."""
+        """PLY snapshot of the alive Gaussians, as the render app reads it,
+        and with the material stage the light as lighting.pkl (a pickled
+        numpy (6, R, R, 3) array, the JAX package's format)."""
         from gs2m_tpu_torch.data.ply import save_gaussian_ply
 
         g = self.gaussians
@@ -390,12 +475,15 @@ class Trainer:
         def take(x):
             return x.detach().cpu().numpy()[alive]
 
-        save_gaussian_ply(os.path.join(self.scene.save_dir(iteration),
-                                       "point_cloud.ply"),
+        d = self.scene.save_dir(iteration)
+        save_gaussian_ply(os.path.join(d, "point_cloud.ply"),
                           take(g.xyz), take(g.features_dc),
                           take(g.features_rest), take(g.opacity),
                           take(g.scaling), take(g.rotation), take(g.albedo),
                           take(g.roughness), take(g.metallic))
+        if self.light_state is not None:
+            with open(os.path.join(d, "lighting.pkl"), "wb") as f:
+                pickle.dump(self.light_state.detach().cpu().numpy(), f)
 
     # Bump when the checkpoint layout changes; load_checkpoint refuses a
     # newer one instead of resuming from silently misread state.
@@ -403,8 +491,9 @@ class Trainer:
 
     def save_checkpoint(self, path: str):
         """Pickle the whole training state as numpy arrays and Python
-        scalars: the JAX package's version-2 top-level keys (its material
-        and term_cut entries None or 0 here) plus the state that decides the
+        scalars: the JAX package's version-2 top-level keys (expand_cap
+        None: the port has no term_cut; the light and its Adam state None
+        without the material stage) plus the state that decides the
         next steps, so a resumed run repeats the uninterrupted one: the host
         rng, the device generator, the view pool and the drop window."""
         def host(x):
@@ -427,10 +516,14 @@ class Trainer:
                           "count": self.opt_state.count},
             "stats": {f.name: host(getattr(self.stats, f.name))
                       for f in dataclasses.fields(self.stats)},
-            "light_state": None,
-            "light_opt_state": None,
+            "light_state": (None if self.light_state is None
+                            else host(self.light_state)),
+            "light_opt_state": (None if self.light_opt_state is None else {
+                "mu": host(self.light_opt_state.mu["light"]),
+                "nu": host(self.light_opt_state.nu["light"]),
+                "count": self.light_opt_state.count}),
             "mv_active_count": int(self.mv_active_count),
-            "rough_active_count": 0,
+            "rough_active_count": int(self.rough_active_count),
             "rng": self.rng.bit_generator.state,
             "generator": host(self.generator.get_state()),
             "view_pool": list(self._view_pool),
@@ -477,6 +570,13 @@ class Trainer:
         self.active_sh_degree = int(state["active_sh_degree"])
         self.instance_cap = int(state["instance_cap"])
         self.mv_active_count = int(state["mv_active_count"])
+        self.rough_active_count = int(state.get("rough_active_count", 0))
+        if state.get("light_state") is not None:
+            lo = state["light_opt_state"]
+            self.light_state = dev_t(state["light_state"])
+            self.light_opt_state = AdamState(mu={"light": dev_t(lo["mu"])},
+                                             nu={"light": dev_t(lo["nu"])},
+                                             count=int(lo["count"]))
         self.rng.bit_generator.state = state["rng"]
         self.generator.set_state(torch.from_numpy(state["generator"]))
         self._view_pool = list(state["view_pool"])

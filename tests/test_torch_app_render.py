@@ -92,9 +92,10 @@ def test_default_device_raises_without_cuda(model_dir):
         tapp.main(["-m", str(model_dir), "--label", "nodev"])
 
 
-# The mesh options and presets are ported (tests/test_torch_app_mesh.py);
-# --spatial > 1 and material models still raise.
-@pytest.mark.parametrize("flags", [["--spatial", "2"], ["--material"]])
+# The mesh options and presets are ported (tests/test_torch_app_mesh.py),
+# and material models (tests/test_torch_app_material.py); --spatial > 1
+# still raises.
+@pytest.mark.parametrize("flags", [["--spatial", "2"]])
 def test_unported_options_raise(model_dir, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapp.main(["-m", str(model_dir), "--device", "cpu"] + flags)

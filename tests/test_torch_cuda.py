@@ -6,7 +6,9 @@ chunks, and edges the paths rarely reach (ragged image edges, termination,
 the 0.99 clamp, empty and overflowing layouts, Gaussians that cross many
 warps and tiles, opacities next to 1/255, the largest chunks, tiles whose
 pixels all fall to T <= 0.5 early, where K3 retires them); and the mesh
-path (TSDF fusion, marching tetrahedra) on the card against the CPU.
+path (TSDF fusion, marching tetrahedra) on the card against the CPU; and
+the training step's properties on the card: no host sync per step and
+bit-equal reruns, in the geometry and the material stage.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -109,10 +111,10 @@ def case_scene(case):
 def test_k1_matches_plain_version(cuda, case):
     seed = case[0]
     geom, vals, b, kw = k1_inputs(*case_scene(case), cuda)
-    n0 = blend.LAUNCHES["blend_fwd"]
+    n0 = blend.LAUNCHES["blend_fwd", vals.shape[0]]
     ker = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
     torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_fwd"] == n0 + 1
+    assert blend.LAUNCHES["blend_fwd", vals.shape[0]] == n0 + 1
     ref = blend.blend_fwd_plain(geom, vals, b.chunk_tile, **kw)
     for name in ("img", "fT", "clogT"):
         a, r = getattr(ker, name), getattr(ref, name)
@@ -212,11 +214,11 @@ def k2_inputs(case, device):
 @pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
 def test_k2_matches_plain_version(cuda, case):
     args, b, kw = k2_inputs(case, cuda)
-    n0 = blend.LAUNCHES["blend_bwd"]
+    n0 = blend.LAUNCHES["blend_bwd", args[1].shape[0]]
     ker = blend.blend_bwd(*args, **kw)
     again = blend.blend_bwd(*args, **kw)
     torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_bwd"] == n0 + 2
+    assert blend.LAUNCHES["blend_bwd", args[1].shape[0]] == n0 + 2
     ref = blend.blend_bwd_plain(*args, **kw)
     for name in ("dgeom", "dvals"):
         a, r = getattr(ker, name), getattr(ref, name)
@@ -252,10 +254,10 @@ def skipped_chunks(fwd, chunk_tile, kw) -> int:
 @pytest.mark.parametrize("case", CASES, ids=[f"case{c[0]}" for c in CASES])
 def test_k3_equals_plain_version_and_k1(cuda, case):
     geom, vals, b, kw = k1_inputs(*case_scene(case), cuda)
-    n0 = blend.LAUNCHES["blend_obs"]
+    n0 = blend.LAUNCHES["blend_obs", 0]
     obs = blend.blend_obs(geom, b.chunk_tile, **kw)
     torch.cuda.synchronize()
-    assert blend.LAUNCHES["blend_obs"] == n0 + 1
+    assert blend.LAUNCHES["blend_obs", 0] == n0 + 1
     fwd = blend.blend_fwd(geom, vals, b.chunk_tile, **kw)
     assert torch.equal(obs, fwd.obs)
     assert torch.equal(obs, blend.blend_obs_plain(geom, b.chunk_tile, **kw))
@@ -320,31 +322,91 @@ def test_render_backward_on_card_matches_cpu(cuda, stage):
         assert rep["pass"], (k, rep)
 
 
-def test_train_steps_do_not_sync_with_the_host(cuda, tmp_path):
-    """Outside the 100-iteration boundaries a train step (warmup or
-    geometry: renders, K1/K2, losses, the reduction, Adam) never waits for
-    the card: torch's sync debug mode turns any host sync into an error."""
+def small_trainer(device, tmp_path, material: bool, geometry_from: int = 2,
+                  iterations: int = 30_000):
+    """A Trainer on chip_smoke's train-scene layout at 96x64 (3,000 points,
+    4 views, widened neighbor thresholds); with `material` the material
+    stage from geometry_from on, against a 64-texel light."""
     import chip_smoke
     from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig, PipelineConfig
     from gs2m_tpu_torch.data.scene import Scene
+    from gs2m_tpu_torch.pbr.render import make_pbr_fns
     from gs2m_tpu_torch.train.trainer import Trainer
 
     src = chip_smoke.build_train_scene(tmp_path, 3000, 96, 64, 4, 0)
-    model = ModelConfig(source_path=str(src), resolution=1)
-    opt = OptimConfig(geometry_from_iter=2, multi_view_max_angle=179.0,
-                      multi_view_max_dist=100.0, multi_view_sample_num=2000)
-    trainer = Trainer(model, PipelineConfig(chunk=64), opt,
-                      Scene(model, opt, device=cuda))
-    trainer.train_step()                      # warm up the lazy inits
+    model = ModelConfig(source_path=str(src), resolution=1, material=material)
+    opt = OptimConfig(geometry_from_iter=geometry_from, iterations=iterations,
+                      multi_view_max_angle=179.0, multi_view_max_dist=100.0,
+                      nearby_cam_max_angle=179.0, nearby_cam_max_dist=100.0,
+                      multi_view_sample_num=2000)
+    fns = make_pbr_fns(base_res=64, device=device) if material else None
+    return Trainer(model, PipelineConfig(chunk=64), opt,
+                   Scene(model, opt, device=device), pbr_fns=fns)
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])
+def test_train_steps_do_not_sync_with_the_host(cuda, tmp_path, material):
+    """Outside the 100-iteration boundaries a train step (warmup, geometry
+    or material: renders, K1/K2, losses, the PBR pass, the reductions, Adam
+    and the light's Adam) never waits for the card: torch's sync debug mode
+    turns any host sync into an error."""
+    trainer = small_trainer(cuda, tmp_path, material)
+    for _ in range(3 if material else 1):     # warm up the lazy inits
+        trainer.train_step()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(3):                    # warmup, then two geometry
+        for _ in range(3):
             metrics = trainer.train_step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert trainer.mv_active_count > 0
     assert bool(torch.isfinite(metrics["loss"]))
+    if material:
+        assert trainer.rough_active_count > 0 and float(metrics["Lmat"]) > 0
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])
+def test_train_steps_are_bit_reproducible(cuda, tmp_path, material):
+    """Two runs of the same steps from one state (a checkpoint) on the card
+    end bit-equal: loss, every parameter, the Adam moments, the densify
+    statistics and, in the material stage, the light and its moments. No
+    float atomics on the path (ops/gather.py, cuDNN deterministic)."""
+    import chip_smoke
+
+    trainer = small_trainer(cuda, tmp_path, material, geometry_from=1)
+    trainer.train_step()
+    ckpt = str(tmp_path / "ckp.pkl")
+    trainer.save_checkpoint(ckpt)
+    runs = []
+    for _ in range(2):
+        trainer.load_checkpoint(ckpt)
+        for _ in range(2):
+            trainer.train_step()
+        torch.cuda.synchronize()
+        runs.append(chip_smoke.training_state(trainer))
+    assert trainer.mv_active_count > 0
+    if material:
+        assert trainer.rough_active_count > 0
+    assert chip_smoke.differing(*runs) == []
+
+
+def test_gather_rows_backward_is_deterministic(cuda):
+    """The light's scatter: many bilinear taps onto few texels, summed the
+    same way on every run and equal to the CPU's sum within rounding."""
+    from gs2m_tpu_torch.ops.gather import gather_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    src = torch.rand(5000, 3, generator=gen, device=cuda, requires_grad=True)
+    idx = torch.randint(0, 5000, (4, 200_000), generator=gen, device=cuda)
+    ct = torch.randn(4, 200_000, 3, generator=gen, device=cuda)
+    grads = [torch.autograd.grad(gather_rows(src, idx), [src], ct)[0]
+             for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+    ref = torch.zeros(5000, 3, dtype=torch.float64).index_add_(
+        0, idx.reshape(-1).cpu(), ct.reshape(-1, 3).double().cpu())
+    torch.testing.assert_close(grads[0].double().cpu(), ref, rtol=1e-5,
+                               atol=1e-4)
 
 
 def sphere_views(device, n=8, W=96, H=72):

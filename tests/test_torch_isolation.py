@@ -39,7 +39,10 @@ def test_port_has_its_modules():
                 "train/reporting", "utils/grad_gate", "apps/train",
                 # mesh path, metrics, quality gate
                 "mesh/__init__", "mesh/tsdf", "mesh/marching",
-                "mesh/cluster", "apps/metrics", "apps/quality_gate"):
+                "mesh/cluster", "apps/metrics", "apps/quality_gate",
+                # material stage
+                "ops/gather", "pbr/__init__", "pbr/cubemap", "pbr/shade",
+                "pbr/bsdf", "pbr/render", "apps/material_gate"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 

@@ -146,7 +146,7 @@ def test_block_keys_and_row_ranks_are_lexicographic():
     order = np.lexsort((q[:, 2], q[:, 1], q[:, 0]))
     np.testing.assert_array_equal(torch.argsort(keys, stable=True).numpy(),
                                   order)
-    uniq, inv = _unique_rows(torch.from_numpy(q))
+    uniq, inv, _ = _unique_rows(torch.from_numpy(q))
     ju, jinv = np.unique(q, axis=0, return_inverse=True)
     np.testing.assert_array_equal(uniq.numpy(), ju)
     np.testing.assert_array_equal(inv.numpy(), jinv.reshape(-1))

@@ -355,10 +355,10 @@ def test_train_app_then_render_app(scene_dir, tmp_path):
     assert (model / "test" / "ours_8" / "render").is_dir()
 
 
-# Checkpoints and the profiler flag are ported (tests/test_torch_app_mesh.py);
-# parallelism and material models still raise.
-@pytest.mark.parametrize("flags", [["--data_parallel"], ["--distributed"],
-                                   ["--material"]])
+# Checkpoints and the profiler flag are ported (tests/test_torch_app_mesh.py),
+# and material models (tests/test_torch_app_material.py); parallelism still
+# raises.
+@pytest.mark.parametrize("flags", [["--data_parallel"], ["--distributed"]])
 def test_unported_train_options_raise(scene_dir, tmp_path, flags):
     from gs2m_tpu_torch.apps import train as train_app
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
