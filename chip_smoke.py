@@ -23,6 +23,18 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 depths into a block-sparse TSDF, extracts, cleans and writes
                 the mesh; blocks, voxels, mesh sizes, the ms of each stage
                 and peak memory are printed; then a profile of one render
+  sp-render     view 0 of the render scene in 4 bands of 304 rows
+                (parallel/sp.py, 1200 rows padded to 1216) against the full
+                frame: color, buffer and final T at K1's gate, observe counts
+                and radii compared; banded and full ms per view and a profile
+                of the banded view; the render app with --spatial 4 over the
+                views against the --dtu run's PNGs (1 LSB)
+  sp-grad       the band-sharded geometry gradient (SSIM halo, Sobel halo,
+                plane prior on the bands' max radii) against the one-card
+                assembly of the same terms: loss at rtol 1e-5, per-Gaussian
+                gradients at utils/grad_gate's tolerances; K1 and K2 launched
+                once per band; then K1 (render, V=16) and K1 + K2 (gradient,
+                V=16) against their plain versions at band 1's shapes
   train scene   bench_train.py's operating point: 8 views at 800x600 (DTU at
                 -r 2) on a ring, 300k points3D in its box, seeded noise GT
                 images, widened neighbor thresholds
@@ -44,6 +56,15 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 one step under torch.use_deterministic_algorithms(True,
                 warn_only=True), whose warnings name any op left without a
                 deterministic implementation
+  dp-train      two ranks of the train app (--data_parallel --distributed,
+                gloo, this script spawned with --dp-worker and torchrun's
+                environment) on the one card: train-full's scene and 20
+                iterations (5 warmup, densification at 10 and 20), run twice;
+                both ranks' and both runs' replicated state bit-equal, the
+                first step's reduced gradient bit-equal to the one-process
+                mean of the two views' gradients, each rank's K1/K2 launches
+                as the schedule implies; the DP step's ms, the all-reduces'
+                ms and bytes per step; K1 and K2 at the cell's shapes
   material      the material stage at train-full's width: the train scene
                 with an all-255 masks/ dir, trained with DTU's material
                 flags (scripts/run_dtu.py:46-51) for 20 iterations (5
@@ -90,6 +111,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -332,24 +354,30 @@ def k2_probe(defines: tuple, args, kw):
     return launch
 
 
-def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int):
+def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
+                 band: tuple | None = None):
     """K1 against its plain version on the binning of one view, with the
-    value width (V) that `feature_count` gives; returns (report, context)
-    where the context carries the binning and K1's outputs to K2 and K3."""
+    value width (V) that `feature_count` gives; with `band` (y0, rows), on
+    that band's binning as parallel/sp.py renders it. Returns (report,
+    context) where the context carries the binning and K1's outputs to K2
+    and K3."""
     import torch
 
     from gs2m_tpu_torch.ops import blend
     from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
     from gs2m_tpu_torch.ops.blend import (LAUNCHES, blend_fwd,
                                           blend_fwd_plain, gather_instances)
-    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.ops.projection import crop_projected, project
     from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
 
     H, W = cam.height, cam.width
-    grid_y, grid_x = num_tiles(H, W, 16)
-    T = grid_y * grid_x
     op = g.get_opacity[:, 0]
     proj = project(g, cam, g.max_sh_degree, op)
+    if band is not None:
+        proj = crop_projected(proj, band[0], band[1], 16)
+        H = band[1]
+    grid_y, grid_x = num_tiles(H, W, 16)
+    T = grid_y * grid_x
     binning = bin_gaussians(proj, H, W, 16, cap, chunk, op)
     if int(binning.dropped) != 0:
         fail(f"kernel phase binning dropped {int(binning.dropped)}")
@@ -737,6 +765,7 @@ def snapshot(trainer) -> dict:
                                       trainer.light_opt_state,
                                       trainer._dropped_window)),
             "generator": trainer.generator.get_state(),
+            "replica_generator": trainer.replica_generator.get_state(),
             "rng": copy.deepcopy(trainer.rng.bit_generator.state),
             "scalars": (trainer.iteration, trainer.active_sh_degree,
                         list(trainer._view_pool), trainer.mv_active_count,
@@ -749,6 +778,7 @@ def restore(trainer, snap: dict) -> None:
      trainer.light_opt_state,
      trainer._dropped_window) = copy.deepcopy(snap["tensors"])
     trainer.generator.set_state(snap["generator"])
+    trainer.replica_generator.set_state(snap["replica_generator"])
     trainer.rng.bit_generator.state = copy.deepcopy(snap["rng"])
     (trainer.iteration, trainer.active_sh_degree, pool, trainer.mv_active_count,
      trainer.rough_active_count, trainer.instance_cap) = snap["scalars"]
@@ -1060,10 +1090,488 @@ def material_gate_path(out: Path, card: str) -> dict:
     return res
 
 
+# The dp-train cell: two ranks of the train app on the one card.
+DP_RANKS, DP_TIMEOUT = 2, 600
+DP_DENSIFY_EVERY = 10
+
+
+def dp_argv(train_dir: Path, model: Path) -> list:
+    """The dp-train cell's train app flags: train-full's scene and schedule
+    (5 warmup and 15 geometry iterations), densification at 10 and 20, no
+    evaluation (every rank launches the same kernels), each rank drawing
+    from its own view partition."""
+    return ["-s", str(train_dir), "-m", str(model), "-r", "1",
+            "--iterations", str(TRAIN_ITERS),
+            "--geometry_from_iter", str(GEOMETRY_FROM),
+            "--densify_from_iter", str(DENSIFY_FROM),
+            "--densification_interval", str(DP_DENSIFY_EVERY),
+            "--test_iterations", str(TRAIN_ITERS + 1),
+            "--save_iterations", str(TRAIN_ITERS),
+            "--multi_view_max_angle", "179", "--multi_view_max_dist", "100",
+            "--nearby_cam_max_angle", "179", "--nearby_cam_max_dist", "100",
+            "--quiet", "--data_parallel", "--distributed"]
+
+
+def dp_configs(train_dir: Path):
+    """The configs the train app builds from dp_argv (model path empty)."""
+    from gs2m_tpu_torch.core.config import (ModelConfig, OptimConfig,
+                                            PipelineConfig)
+    opt = OptimConfig(iterations=TRAIN_ITERS, geometry_from_iter=GEOMETRY_FROM,
+                      densify_from_iter=DENSIFY_FROM,
+                      densification_interval=DP_DENSIFY_EVERY,
+                      multi_view_max_angle=179.0, multi_view_max_dist=100.0,
+                      nearby_cam_max_angle=179.0, nearby_cam_max_dist=100.0)
+    return (ModelConfig(source_path=str(train_dir), resolution=1),
+            PipelineConfig(), opt)
+
+
+def digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()[:20]
+
+
+def grads_digest(grads: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(grads):
+        h.update(grads[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:20]
+
+
+def dp_worker(rank: int, out: Path, train_dir: Path, full: bool) -> None:
+    """One rank of the dp-train cell (spawned by dp_path with torchrun's
+    environment): with `full`, first the first step's reduced gradient (a
+    digest, with the rank's view), then the train app with --data_parallel
+    --distributed; the digests of its replicated state and its launches;
+    with `full`, DP steps timed, the all-reduces timed on buffers of the
+    step's sizes and, on rank 0 after the group is gone, K1 and K2 at the
+    cell's shapes against their plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from gs2m_tpu_torch.apps import train as train_app
+    from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.parallel.dp import (all_reduce_, join_process_group,
+                                            make_reducer)
+    from gs2m_tpu_torch.train.trainer import Trainer, make_train_step
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a card")
+    proc = join_process_group("cuda", timeout_s=300)
+    report = {"rank": rank, "backend": proc.backend, "device": str(proc.device)}
+    mc, pipe, opt = dp_configs(train_dir)
+    if full:
+        # The first step's reduced gradient, from the trainer's initial state
+        # (the app's) on this rank's first view.
+        scene = train_app.load_scene(mc, opt, proc.device, proc, True)
+        tr = Trainer(mc, pipe, opt, scene, data_parallel=True,
+                     distributed=True)
+        view, nearest, has, _, _ = tr.draw_batch(False)
+        reducer, kept = make_reducer(), {}
+
+        def reduce(*args):
+            out_ = reducer(*args)
+            kept["grads"] = out_[0]
+            return out_
+
+        make_train_step(mc, pipe, opt, scene, tr.instance_cap, False,
+                        reduce=reduce)(tr.gaussians, tr.opt_state, tr.stats,
+                                       view, nearest, has, 1, 0, tr.generator)
+        report["first_step"] = {"view": view, "grad_digest": grads_digest(
+            kept["grads"]), "instance_cap": tr.instance_cap}
+        del tr, scene, kept
+        torch.cuda.empty_cache()
+
+    blend.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    trainer = train_app.main(dp_argv(train_dir, out / "model"))
+    torch.cuda.synchronize()
+    report["app_s"] = time.perf_counter() - t0
+    report["launches"] = blend.launch_counts()
+    report["mv_active"] = trainer.mv_active_count
+    report["densify"] = trainer.last_densify_info
+    report["alive"] = trainer.gaussians.num_alive
+    report["loss"] = float(trainer.last_metrics["loss"])
+    report["loaded_views"] = (None if trainer.scene.loaded_views is None
+                              else sorted(trainer.scene.loaded_views))
+    report["digests"] = {k: digest(v)
+                         for k, v in training_state(trainer).items()}
+    if full:
+        step = trainer._get_step(True)
+
+        def dp_step():
+            v, n, has, _, _ = trainer.draw_batch(False)
+            (trainer.gaussians, trainer.opt_state, trainer.stats,
+             out_) = step(trainer.gaussians, trainer.opt_state, trainer.stats,
+                          v, n, has, trainer.iteration,
+                          trainer.active_sh_degree, trainer.generator)
+            return out_
+
+        report["dp_step_ms"] = time_ms(dp_step, 3)
+        C = trainer.gaussians.capacity
+        n_sum = sum(p.numel() for p in trainer.gaussians.params_dict().values())
+        n_sum += 3 * C + 7       # three statistics rows and the metrics
+        flat = torch.zeros(n_sum, device=proc.device)
+        radii = torch.zeros(C, device=proc.device)
+        host = torch.zeros(n_sum, pin_memory=proc.device.type == "cuda")
+
+        def wall_ms(fn, runs=3):
+            fn()
+            ts = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(ts))
+
+        report["allreduce_sum_ms"] = wall_ms(lambda: all_reduce_(flat))
+        report["allreduce_max_ms"] = wall_ms(
+            lambda: all_reduce_(radii, dist.ReduceOp.MAX))
+        report["host_allreduce_ms"] = wall_ms(lambda: dist.all_reduce(host))
+        report["bytes_per_step"] = 4 * (n_sum + C)
+        report["capacity"] = C
+    if proc.created:
+        dist.destroy_process_group()
+    if full and rank == 0:
+        report["kernels"] = kernel_phases(
+            "dp-train", trainer.gaussians, trainer.scene.train_cameras[0],
+            trainer.pipe.chunk, trainer.instance_cap, 5)
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    print(f"[smoke] dp worker {rank} done", flush=True)
+
+
+def dp_run(root: Path, train_dir: Path, full: bool) -> list:
+    """Two ranks of dp_worker as subprocesses on the one card (gloo: NCCL
+    refuses two ranks on one device), each with a timeout; returns their
+    reports."""
+    import socket
+
+    out = root / ("dp_full" if full else "dp_again")
+    out.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(DP_RANKS):
+        env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DP_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        logs.append(open(out / f"rank{r}.log", "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--dp-worker",
+             str(r), "--dp-out", str(out), "--dp-scene", str(train_dir)]
+            + (["--dp-full"] if full else []),
+            cwd=HERE, env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            fail(f"dp-train rank {r} exited with {p.returncode}:\n"
+                 f"{text[-3000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(DP_RANKS)]
+
+
+def one_process_mean_digest(train_dir: Path, first_steps: list, dev) -> str:
+    """The digest of the mean of the ranks' first-step gradients computed
+    one after the other in this process, from the same initial state."""
+    from gs2m_tpu_torch.data.scene import Scene
+    from gs2m_tpu_torch.train.trainer import Trainer, make_train_step
+
+    mc, pipe, opt = dp_configs(train_dir)
+    scene = Scene(mc, opt, device=dev)
+    grads = []
+    for fs in first_steps:
+        tr = Trainer(mc, pipe, opt, scene)
+        if tr.instance_cap != fs["instance_cap"]:
+            fail(f"dp-train: instance cap {tr.instance_cap} here, "
+                 f"{fs['instance_cap']} on the ranks")
+        kept = {}
+
+        def keep(g, light, contrib, metrics):
+            kept["grads"] = g
+            return g, light, contrib, metrics
+
+        make_train_step(mc, pipe, opt, scene, tr.instance_cap, False,
+                        reduce=keep)(tr.gaussians, tr.opt_state, tr.stats,
+                                     fs["view"], fs["view"], False, 1, 0,
+                                     tr.generator)
+        grads.append(kept["grads"])
+        del tr
+    n = len(grads)
+    return grads_digest({k: sum(g[k] for g in grads) / n for k in grads[0]})
+
+
+def dp_path(root: Path, train_dir: Path, card: str, dev, geo_ms: float):
+    """The dp-train cell: two ranks of the train app (--data_parallel
+    --distributed) on the one card, twice. Fails unless both ranks end
+    bit-equal (parameters, Adam moments, statistics, alive mask, loss), the
+    second run equals the first, the first step's reduced gradient equals
+    the one-process mean of the two views' gradients bit for bit, and each
+    rank's K1 and K2 launches are what the schedule implies. Returns
+    (rank 0's kernel reports, its launches)."""
+    t0 = time.perf_counter()
+    first = dp_run(root, train_dir, True)
+    again = dp_run(root, train_dir, False)
+    wall = time.perf_counter() - t0
+    r0 = first[0]
+    n_warm, n_geo = GEOMETRY_FROM, TRAIN_ITERS - GEOMETRY_FROM
+    # Per rank: K1 once per warmup step and twice per geometry step (the
+    # view and its nearest), K2 once per step and once more where the
+    # multi-view term fired (mv_active counts both ranks' steps).
+    want = {"blend_fwd": n_warm + 2 * n_geo,
+            "blend_bwd": n_warm + n_geo + r0["mv_active"] // DP_RANKS,
+            "blend_obs": 0}
+    mean = one_process_mean_digest(train_dir, [r["first_step"] for r in first],
+                                   dev)
+    print(f"[smoke] dp-train: {DP_RANKS} ranks ({r0['backend']}, "
+          f"{r0['device']}) of the train app, {TRAIN_ITERS} iterations "
+          f"({n_warm} warmup, {n_geo} geometry, densify "
+          f"{r0['densify']}), twice, in {wall:.1f} s; app {r0['app_s']:.1f} "
+          f"s; last loss {r0['loss']!r}, alive {r0['alive']}, mv_active "
+          f"{r0['mv_active']}, views loaded {r0['loaded_views']}; launches "
+          f"per rank {[r['launches'] for r in first]} (expected {want}); "
+          f"first-step views {[r['first_step']['view'] for r in first]}, "
+          f"reduced grad {r0['first_step']['grad_digest']} vs one-process "
+          f"mean {mean}")
+    print(f"[smoke] dp-train step at {TRAIN_W}x{TRAIN_H}, capacity "
+          f"{r0['capacity']}: {r0['dp_step_ms']:.2f} ms/step on rank 0 (rank "
+          f"1 {first[1]['dp_step_ms']:.2f}; median of 3, CUDA events; one "
+          f"process's geometry step {geo_ms:.2f} ms); all-reduce of "
+          f"{r0['bytes_per_step']} bytes per step: sum "
+          f"{r0['allreduce_sum_ms']:.2f} ms + max {r0['allreduce_max_ms']:.2f}"
+          f" ms (staged through pinned host memory; the sum's gloo part "
+          f"alone {r0['host_allreduce_ms']:.2f} ms), "
+          f"{(r0['allreduce_sum_ms'] + r0['allreduce_max_ms']) / r0['dp_step_ms']:.3f}"
+          f" of the step (host clock around synchronized calls, median of "
+          f"3), on {card}")
+    bad = sorted(k for k in r0["digests"]
+                 if any(r["digests"].get(k) != r0["digests"][k]
+                        for r in first[1:] + again))
+    if bad or any(r["digests"].keys() != r0["digests"].keys()
+                  for r in first + again):
+        fail(f"dp-train: the ranks' or the runs' states differ in {bad}")
+    if r0["first_step"]["grad_digest"] != mean:
+        fail("dp-train: the first step's reduced gradient is not the "
+             "one-process mean of the two views' gradients")
+    if any(r["launches"] != want for r in first + again):
+        fail(f"dp-train launches {[r['launches'] for r in first + again]}, "
+             f"expected {want} per rank")
+    if r0["densify"] is None or not np.isfinite(r0["loss"]):
+        fail(f"dp-train: densify {r0['densify']}, loss {r0['loss']}")
+    return r0["kernels"], r0["launches"]
+
+
+# The sp cells: render-full's Gaussians in 4 bands on the one card.
+SP_BANDS = 4
+
+
+def k1_gate(a, b) -> tuple:
+    """(share of entries off by > 1e-5, max |a - b|): K1's gate is a share
+    of at most 1e-4."""
+    d = (a - b).abs()
+    return float((d > 1e-5).float().mean()), float(d.max())
+
+
+def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
+            card: str, dev, render_ms: float):
+    """The sp-render and sp-grad cells: render-full's view 0 in 4 bands
+    against the full frame (color, buffer and final T at K1's gate; observe
+    counts and radii compared), the render app with --spatial 4 over the 4
+    views against the full-frame app's PNGs (1 LSB), the band-sharded
+    geometry gradient against the one-card assembly of the same terms
+    (loss at rtol 1e-5, per-Gaussian gradients at utils/grad_gate's
+    tolerances), then K1 (render) and K1 + K2 (gradient) at one band's
+    shapes against their plain versions. Returns (kernel reports, launches)
+    by cell."""
+    import torch
+    from PIL import Image
+
+    from gs2m_tpu_torch.apps import render as render_app
+    from gs2m_tpu_torch.models import losses as L
+    from gs2m_tpu_torch.models.render import derive_render_pkg, render
+    from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.ops.rasterize import (build_features,
+                                              rasterize_from_projected)
+    from gs2m_tpu_torch.parallel.sp import (make_sp_geometry_grad,
+                                            make_sp_render, padded_height)
+    from gs2m_tpu_torch.utils.grad_gate import (DEFAULT_TOL, TOLERANCES,
+                                                grad_gate)
+
+    H, W, chunk = cam.height, cam.width, 256
+    local_h = padded_height(H, SP_BANDS) // SP_BANDS
+    bg = torch.zeros(3, device=dev)
+    cap = max(full_cap // SP_BANDS // chunk * chunk, 4 * chunk)
+    with torch.no_grad():
+        op = g.get_opacity[:, 0]
+        full = rasterize_from_projected(project(g, cam, 3, op), op,
+                                        build_features(g, cam), bg, cam,
+                                        feature_count=9, chunk=chunk,
+                                        instance_cap=full_cap)
+    while True:
+        sp_render = make_sp_render([dev], SP_BANDS, H, feature_count=9,
+                                   active_sh_degree=3, chunk=chunk,
+                                   instance_cap_per_band=cap)
+        out = sp_render(g, cam, bg)
+        if int(out.dropped) == 0:
+            break
+        cap *= 2
+    report = {"bands": SP_BANDS, "band_rows": local_h, "cap_per_band": cap,
+              "instances": int(out.num_instances),
+              "instances_full": int(full.num_instances)}
+    problems = []
+    for k in ("color", "buffer", "final_T"):
+        frac, err = k1_gate(getattr(out, k), getattr(full, k))
+        report[f"{k}_frac_over_1e-5"], report[f"{k}_max_abs_err"] = frac, err
+        if frac > 1e-4:
+            problems.append(f"{k}: {frac:.3g} of entries off by > 1e-5")
+    for k in ("observe", "radii"):
+        report[f"{k}_differ"] = int((getattr(out, k) != getattr(full, k)).sum())
+    if report["radii_differ"]:
+        problems.append(f"radii differ in {report['radii_differ']} rows")
+    def banded_view():
+        return derive_render_pkg(sp_render(g, cam, bg), cam, bg)
+
+    sp_ms = time_ms(banded_view, 5)
+    print(f"[smoke] sp-render view 0 in {SP_BANDS} bands of {local_h} rows "
+          f"against the full frame: {json.dumps(report)}; banded "
+          f"{sp_ms:.2f} ms/view against the full frame's render() "
+          f"{render_ms:.2f} ms/view (median of 5, CUDA events) on {card}")
+    if problems:
+        fail("sp-render: " + "; ".join(problems))
+    profile_call("sp-render", banded_view, sp_ms)
+
+    blend.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stats = render_app.main(["-m", str(model_dir), "-s", str(scene_dir),
+                             "--spatial", str(SP_BANDS), "--label", "sp"])[
+        "views"]
+    app_wall = time.perf_counter() - t0
+    render_launches = blend.launch_counts()
+    # The app's first band cap: its full-frame cap (8 x capacity) / bands.
+    cap0 = max(max(8 * g.capacity // chunk * chunk, 4 * chunk) // SP_BANDS
+               // chunk * chunk, 4 * chunk)
+    regrowths = int(np.log2(stats[-1]["instance_cap"] / cap0))
+    if render_launches["blend_fwd"] != SP_BANDS * (VIEWS + regrowths):
+        fail(f"render app --spatial {SP_BANDS}: K1 launched "
+             f"{render_launches['blend_fwd']} times, expected {SP_BANDS} x "
+             f"({VIEWS} views + {regrowths} regrowths)")
+    worst = 0
+    for kind in ("render", "normal", "depth"):
+        a_dir = model_dir / "train" / "ours_1" / kind
+        b_dir = model_dir / "train" / "sp_1" / kind
+        names = sorted(p.name for p in a_dir.iterdir())
+        if names != sorted(p.name for p in b_dir.iterdir()):
+            fail(f"render app --spatial: {kind} files differ")
+        for n in names:
+            a = np.asarray(Image.open(a_dir / n), np.int32)
+            b = np.asarray(Image.open(b_dir / n), np.int32)
+            worst = max(worst, int(np.abs(a - b).max()))
+    print(f"[smoke] render app --spatial {SP_BANDS}: {len(stats)} views in "
+          f"{app_wall:.2f} s; render ms/view "
+          f"{[round(s['render_s'] * 1e3, 2) for s in stats]}; per-band cap "
+          f"{stats[-1]['instance_cap']}; launches {render_launches}; PNGs "
+          f"against the full-frame app's: max {worst} LSB")
+    if worst > 1:
+        fail(f"render app --spatial: PNGs differ by {worst} LSB")
+
+    # The geometry gradient: SSIM 0.2, depth-normal 0.05, plane 100 (the
+    # trainer's defaults) against a seeded noise target.
+    lam, ldn, lpl = 0.2, 0.05, 100.0
+    target = torch.rand(3, H, W, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    params = g.params_dict()
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+    def full_grad():
+        gg = g.with_params(leaves)
+        pkg = render(gg, cam, bg, 3, geometry_stage=True, sobel_normal=True,
+                     chunk=chunk, instance_cap=full_cap)
+        loss = (L.rgb_loss(L.clip(pkg["render"], 0.0, 1.0), target, lam)
+                + lpl * L.plane_loss(pkg["visibility_filter"], gg.get_scaling)
+                + ldn * L.depth_normal_loss(pkg["normal_map"],
+                                            pkg["sobel_map"], target))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(v) if d is None else d
+                               for (k, v), d in zip(leaves.items(), grads)}
+
+    sp_grad = make_sp_geometry_grad(
+        [dev], SP_BANDS, H, W, active_sh_degree=3, chunk=chunk,
+        instance_cap_per_band=cap, lambda_ssim=lam,
+        lambda_depth_normal=ldn, lambda_plane=lpl)
+    l_full, g_full = full_grad()
+    blend.LAUNCHES.clear()
+    l_sp, g_sp = sp_grad(params, g, cam, bg, target, torch.ones(1, H, W,
+                                                                 device=dev))
+    torch.cuda.synchronize()
+    grad_launches = blend.launch_counts()
+    rel = abs(float(l_sp) - float(l_full)) / abs(float(l_full))
+    gates = {}
+    for k in g_full:
+        rep = grad_gate(g_sp[k].cpu().numpy(), g_full[k].cpu().numpy(),
+                        TOLERANCES.get(k, DEFAULT_TOL))
+        gates[k] = {x: rep[x] for x in ("p999", "rel_to_max", "pass")}
+    full_ms = time_ms(full_grad, 3)
+    band_ms = time_ms(lambda: sp_grad(params, g, cam, bg, target,
+                                      torch.ones(1, H, W, device=dev)), 3)
+    print(f"[smoke] sp-grad (geometry objective without the cross-view term, "
+          f"{SP_BANDS} bands): loss {float(l_sp)!r} vs one card "
+          f"{float(l_full)!r} (rel {rel:.3g}); gates {json.dumps(gates)}; "
+          f"launches {grad_launches}; banded {band_ms:.2f} ms, one card "
+          f"{full_ms:.2f} ms (median of 3, CUDA events) on {card}")
+    if rel > 1e-5 or not all(v["pass"] for v in gates.values()):
+        fail("sp-grad: the banded geometry gradient disagrees with the "
+             "one-card assembly")
+    if grad_launches != {"blend_fwd": SP_BANDS, "blend_bwd": SP_BANDS,
+                         "blend_obs": 0}:
+        fail(f"sp-grad launches {grad_launches}, expected {SP_BANDS} each of "
+             f"K1 and K2")
+    del g_full, g_sp, leaves
+
+    # One band's shapes: band 1 (rows 304..607 at 1200 rows).
+    band = (local_h, local_h)
+    k1r, _ = kernel_phase(g, cam, chunk, cap, 9, band=band)
+    print(f"[smoke] sp-render K1 blend_fwd (band 1): {json.dumps(k1r)}")
+    k1g, ctx = kernel_phase(g, cam, chunk, cap, 10, band=band)
+    print(f"[smoke] sp-grad K1 blend_fwd (band 1): {json.dumps(k1g)}")
+    k2g = k2_phase(ctx)
+    print(f"[smoke] sp-grad K2 blend_bwd (band 1): {json.dumps(k2g)}")
+    return ({"sp-render": {"blend_fwd": k1r},
+             "sp-grad": {"blend_fwd": k1g, "blend_bwd": k2g}},
+            {"sp-render": render_launches, "sp-grad": grad_launches})
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # One rank of the dp-train cell (dp_run spawns them).
+    ap.add_argument("--dp-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-scene", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-full", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dp_worker is not None:
+        dp_worker(args.dp_worker, args.dp_out, args.dp_scene, args.dp_full)
+        return
     t_start = time.perf_counter()
 
     import torch
@@ -1168,6 +1676,11 @@ def main(argv=None) -> None:
     print(f"[smoke] render() view 0, device path: {render_ms:.2f} ms "
           f"(median of 5, CUDA events) on {card}")
     profile_call("render", render_view0, render_ms)
+
+    # --- phase 4b: the same Gaussians in 4 bands (sp-render, sp-grad) ------
+    sp_kernels, sp_launches = sp_path(g, cam, scene_dir, model_dir,
+                                      stats[-1]["instance_cap"], card, dev,
+                                      render_ms)
     del g
 
     # --- phase 5: the train app (this slice's path) -------------------------------
@@ -1305,6 +1818,10 @@ def main(argv=None) -> None:
         trainer.pipe.chunk, trainer.instance_cap, 5)
 
     del trainer
+
+    # --- phase 6b: two data-parallel ranks of the train app (dp-train) -----
+    dp_kernels, dp_launches = dp_path(root, train_dir, card, dev, geo_ms)
+
     material_kernels, mat_launches = material_path(root, train_dir, argv,
                                                    card, dev)
 
@@ -1337,7 +1854,12 @@ def main(argv=None) -> None:
             ("quality-smoke", {k: quality_kernels[k]
                                for k in ("blend_fwd", "blend_bwd")},
              q_launches),
-            ("train-material", material_kernels, mat_launches)):
+            ("train-material", material_kernels, mat_launches),
+            ("dp-train", {k: dp_kernels[k] for k in ("blend_fwd",
+                                                     "blend_bwd")},
+             dp_launches),
+            ("sp-render", sp_kernels["sp-render"], sp_launches["sp-render"]),
+            ("sp-grad", sp_kernels["sp-grad"], sp_launches["sp-grad"])):
         for name, rep in reports.items():
             records.append({
                 "name": name, "cell": cell, "route": "cuda",

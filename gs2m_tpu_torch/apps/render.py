@@ -12,10 +12,11 @@ presets (TnT bounds from transforms.json's aabb_range). A material model
 (its snapshot's lighting.pkl, the JAX package's format too) renders its
 PBR image as the render, writes the albedo / roughness / metallic /
 diffuse / specular maps beside it and the light as envmap.png. Runs on
-CUDA (default) or, when asked, on the CPU.
-
-Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
---spatial > 1 ("Parallelism").
+CUDA (default) or, when asked, on the CPU. --spatial N renders each view
+in N horizontal bands (parallel/sp.py) over every local card (in turn on
+one card; on the CPU under --device cpu), at a per-band instance cap of
+the full frame's / N, regrown on overflow; the derived maps come from the
+gathered bands.
 
 Usage: python -m gs2m_tpu_torch.apps.render -m <model_dir> [--dtu|--tnt|--blender]
 """
@@ -98,7 +99,8 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
     mesh; returns the per-view stats and extract_mesh's record or None.
     With a material model (`light_state`, the (6, R, R, 3) light) the
     render is the PBR pass's, and the material maps are written too."""
-    from gs2m_tpu_torch.models.render import render
+    from gs2m_tpu_torch.models.render import (derive_render_pkg,
+                                              feature_count_for, render)
     from gs2m_tpu_torch.utils.images import (convert_normal_for_save,
                                              save_depth_colormap, save_image,
                                              save_rgba)
@@ -138,8 +140,29 @@ def render_views(model_cfg, pipe, args, scene_extent, gaussians, split,
         save_image(base / "envmap.png",
                    np.clip(envmap.cpu().numpy(), 0, 1).transpose(2, 0, 1))
 
+    spatial = max(int(args.spatial or 0), 0)
+    if spatial > 1:
+        from gs2m_tpu_torch.parallel.sp import make_sp_render
+        sp_devices = ([torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+                      if device.type == "cuda" else [device])
+        instance_cap = max(instance_cap // spatial // pipe.chunk * pipe.chunk,
+                           4 * pipe.chunk)
+
     def render_one(cam):
         nonlocal instance_cap
+        while spatial > 1:
+            out = make_sp_render(
+                sp_devices, spatial, cam.height,
+                feature_count=feature_count_for(True, True,
+                                                model_cfg.metallic),
+                active_sh_degree=gaussians.max_sh_degree, tile=pipe.tile,
+                chunk=pipe.chunk, instance_cap_per_band=instance_cap)(
+                gaussians, cam, bg)
+            if int(out.dropped) == 0 or instance_cap >= 2 ** 26:
+                return derive_render_pkg(out, cam, bg,
+                                         sobel_normal=need_sobel)
+            instance_cap *= 2
         while True:
             pkg = render(gaussians, cam, bg, gaussians.max_sh_degree,
                          geometry_stage=True, material_stage=True,
@@ -309,10 +332,6 @@ def main(argv=None) -> dict:
         args.max_depth, args.voxel_size = 8.0, 0.004
         args.sdf_trunc = 4.0 * args.voxel_size
         args.num_clusters = 1
-    if args.spatial > 1:
-        raise NotImplementedError(
-            "--spatial > 1 is not ported yet: ROADMAP.md Queue A, "
-            "'Parallelism'")
     device = resolve_device(args.device)
 
     from gs2m_tpu_torch.core.gaussians import Gaussians

@@ -12,13 +12,21 @@ trains the material stage (from geometry_from_iter on) against a learned
 cubemap light and writes lighting.pkl with each snapshot. Runs on CUDA
 (default) or, when asked, on the CPU.
 
-Not ported yet, and refused with NotImplementedError (ROADMAP.md, Queue A):
---data_parallel and --distributed ("Parallelism").
+--data_parallel trains one view per rank of a torch.distributed group per
+step (parallel/dp.py), joined from torchrun's environment; a plain launch
+is a world of one. Without --distributed every rank loads every image and
+draws the same global batch; with it each rank draws from its own view
+partition and loads only its closure of images (--distributed with more
+than one rank requires --data_parallel). Rank 0 alone writes the config,
+logs, snapshots, checkpoints and the profile, and evaluates.
 
 Usage: python -m gs2m_tpu_torch.apps.train -s <scene> -m <out> [--iterations N]
+       torchrun --nproc_per_node N -m gs2m_tpu_torch.apps.train -s <scene> \
+           -m <out> --data_parallel [--distributed]
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -71,7 +79,8 @@ def step_stages(profiler, busy_ms: float) -> dict:
     "pbr" (the PBR pass with build_mips), "losses" (the rest of the
     forward), "backward" (what step/backward launches, and every kernel
     launched on the autograd engine's own threads, where a card's backward
-    runs), "update" (densification statistics and Adam), "light" (the
+    runs), "reduce" (the data-parallel step's collectives), "update"
+    (densification statistics and Adam), "light" (the
     light's Adam step) and "other" (the rest of `busy_ms`: work outside
     the steps). Empty when the window holds no step."""
     from torch.autograd import DeviceType
@@ -89,6 +98,7 @@ def step_stages(profiler, busy_ms: float) -> dict:
     out = {"render": ms("step/render"), "pbr": ms("step/pbr")}
     out["losses"] = ms("step/forward") - out["render"] - out["pbr"]
     out["backward"] = ms("step/backward") + engine
+    out["reduce"] = ms("step/reduce")
     out["update"] = ms("step/update")
     out["light"] = ms("step/light")
     out["other"] = busy_ms - sum(out.values())
@@ -123,7 +133,7 @@ def main(argv=None):
     from gs2m_tpu_torch import resolve_device
     from gs2m_tpu_torch.core.config import (ModelConfig, OptimConfig,
                                             PipelineConfig, add_group_args,
-                                            extract_group, save_cfg_args)
+                                            extract_group)
 
     parser = ArgumentParser(description="gs2m_tpu_torch training")
     add_group_args(parser, ModelConfig)
@@ -148,42 +158,102 @@ def main(argv=None):
     model_cfg = extract_group(args, ModelConfig)
     pipe = extract_group(args, PipelineConfig)
     opt = extract_group(args, OptimConfig)
+    proc = None
     if args.data_parallel or args.distributed:
-        raise NotImplementedError(
-            "--data_parallel and --distributed are not ported yet: "
-            "ROADMAP.md Queue A, 'Parallelism'")
-    device = resolve_device(args.device)
+        from gs2m_tpu_torch.parallel.dp import join_process_group
+        proc = join_process_group(args.device)
+        device = proc.device
+        print(f"[>] rank {proc.rank} of {proc.world}: backend "
+              f"{proc.backend}, device {device}", flush=True)
+    else:
+        device = resolve_device(args.device)
+    try:
+        if proc is not None and proc.world > 1 and args.distributed \
+                and not args.data_parallel:
+            # Without DP the view pool stays global while each rank loaded
+            # only its own images (other rows zero): refused, as the JAX
+            # package refuses it.
+            raise SystemExit("--distributed with more than one rank requires "
+                             "--data_parallel (per-rank view partitions only "
+                             "make sense under data parallelism)")
+        return train(args, model_cfg, pipe, opt, device, proc)
+    finally:
+        if proc is not None and proc.created:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def load_scene(model_cfg, opt, device, proc=None, distributed=False):
+    """The training scene of this rank: every image, or under
+    `distributed` with more than one rank only the closure of the rank's
+    view partition (parallel/dp.py). Ranks other than 0 write nothing to
+    the model directory."""
     from gs2m_tpu_torch.data.scene import Scene
+
+    rank, world = (0, 1) if proc is None else (proc.rank, proc.world)
+    if rank != 0:
+        model_cfg = dataclasses.replace(model_cfg, model_path="")
+    if not (distributed and world > 1):
+        return Scene(model_cfg, opt, device=device)
+    from gs2m_tpu_torch.parallel.dp import host_view_closure, partition_views
+    scene = Scene(model_cfg, load_images=False, device=device)
+    scene.training_setup(opt)
+    local = partition_views(len(scene.train_cameras), rank, world)
+    closure = host_view_closure(local, scene.nearest_table, scene.nearest_mask,
+                                scene.nearby_table, scene.nearby_mask)
+    scene.load_train_image_subset(closure)
+    print(f"[>] rank {rank} of {world}: {len(local)} local views, "
+          f"{len(closure)} images loaded", flush=True)
+    return scene
+
+
+def train(args, model_cfg, pipe, opt, device, proc=None):
+    """The training loop of main (on every rank under data parallelism)."""
+    from gs2m_tpu_torch.core.config import save_cfg_args
     from gs2m_tpu_torch.train.reporting import TrainingReporter, evaluate_views
     from gs2m_tpu_torch.train.trainer import Trainer
 
+    rank = 0 if proc is None else proc.rank
+    quiet = args.quiet or rank != 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     save_iterations = sorted(set(args.save_iterations + [opt.iterations]))
     os.makedirs(model_cfg.model_path, exist_ok=True)
-    save_cfg_args(model_cfg.model_path, model_cfg, pipe, opt)
+    if rank == 0:
+        save_cfg_args(model_cfg.model_path, model_cfg, pipe, opt)
 
-    print(f"[>] Loading scene: {model_cfg.source_path}")
-    scene = Scene(model_cfg, opt, device=device)
-    print(f"[>] {len(scene.train_cameras)} train / {len(scene.test_cameras)} "
-          f"test views at {scene.train_cameras[0].width}x"
-          f"{scene.train_cameras[0].height}; extent {scene.cameras_extent:.3f}")
-    reporter = TrainingReporter(model_cfg.model_path, enable=not args.quiet)
+    say(f"[>] Loading scene: {model_cfg.source_path}")
+    scene = load_scene(model_cfg, opt, device, proc, args.distributed)
+    say(f"[>] {len(scene.train_cameras)} train / {len(scene.test_cameras)} "
+        f"test views at {scene.train_cameras[0].width}x"
+        f"{scene.train_cameras[0].height}; extent {scene.cameras_extent:.3f}")
+    reporter = TrainingReporter(model_cfg.model_path, enable=not quiet)
     pbr_fns = None
     if model_cfg.material:
         from gs2m_tpu_torch.pbr import make_pbr_fns
         pbr_fns = make_pbr_fns(device=device)
-    trainer = Trainer(model_cfg, pipe, opt, scene, pbr_fns=pbr_fns)
+    trainer = Trainer(model_cfg, pipe, opt, scene, pbr_fns=pbr_fns,
+                      data_parallel=args.data_parallel,
+                      distributed=args.distributed)
+    if args.data_parallel:
+        say(f"[>] Data-parallel over {trainer.n_devices} ranks "
+            f"({trainer.n_devices} views/step)")
     if args.start_checkpoint:
         trainer.load_checkpoint(args.start_checkpoint)
-        print(f"[>] Resumed from {args.start_checkpoint} at iteration "
-              f"{trainer.iteration}")
-    print(f"[>] Capacity {trainer.gaussians.capacity}, "
-          f"{trainer.gaussians.num_alive} alive, on {device}")
+        say(f"[>] Resumed from {args.start_checkpoint} at iteration "
+            f"{trainer.iteration}")
+    say(f"[>] Capacity {trainer.gaussians.capacity}, "
+        f"{trainer.gaussians.num_alive} alive, on {device}")
+    # The train split's evaluation: the first five views (of the loaded
+    # ones, where a rank loaded a subset).
+    eval_views = (list(range(min(5, len(scene.train_cameras))))
+                  if scene.loaded_views is None
+                  else sorted(scene.loaded_views)[:5])
 
     t0 = time.time()
-    log_path = os.path.join(model_cfg.model_path, "train_log.jsonl")
+    log_path = (os.path.join(model_cfg.model_path, "train_log.jsonl")
+                if rank == 0 else os.devnull)
     ema = None
-    prof = args.profile_iterations
+    prof = args.profile_iterations if rank == 0 else None
     profiler = None
     with open(log_path, "a") as log_file:
         while trainer.iteration < opt.iterations:
@@ -212,7 +282,7 @@ def main(argv=None):
                         break
                 alive = trainer.gaussians.num_alive
                 dt = time.time() - t0
-                if not args.quiet:
+                if not quiet:
                     print(f"[{it:>6}] loss {ema:.5f} Lrgb "
                           f"{float(metrics['Lrgb']):.5f} Lgeo "
                           f"{float(metrics['Lgeo']):.5f} Lmat "
@@ -229,10 +299,12 @@ def main(argv=None):
                 reporter.scalars(it, {k: float(v) for k, v in metrics.items()},
                                  alive, iter_time_ms=1e3 * dt / it)
 
-            if it in args.test_iterations:
-                res = evaluate_views(trainer, scene.train_cameras[:5],
-                                     scene.gt_images[:5], log_images_to=reporter,
-                                     iteration=it, tag="train")
+            if it in args.test_iterations and rank == 0:
+                res = evaluate_views(trainer,
+                                     [scene.train_cameras[v] for v in eval_views],
+                                     scene.gt_images[eval_views],
+                                     log_images_to=reporter, iteration=it,
+                                     tag="train")
                 line = f"[ITER {it:>6}] train PSNR {res['psnr']:.2f}"
                 if "psnr_pbr" in res:
                     line += f" (PBR {res['psnr_pbr']:.2f})"
@@ -261,7 +333,7 @@ def main(argv=None):
                 reporter.histogram(it, "scene/opacity_histogram",
                                    torch.sigmoid(g.opacity[g.alive]))
 
-            if it in save_iterations:
+            if it in save_iterations and rank == 0:
                 print(f"[ITER {it:>6}] Saving snapshot")
                 trainer.save_snapshot(it)
             if it in args.checkpoint_iterations:
@@ -272,9 +344,11 @@ def main(argv=None):
         stop_profiler(profiler, device,
                       os.path.join(model_cfg.model_path, "profile"), prof)
     wall_min = (time.time() - t0) / 60.0
-    with open(os.path.join(model_cfg.model_path, "runtime.json"), "w") as f:
-        json.dump({"minutes": wall_min, "iterations": opt.iterations}, f)
-    print(f"[>] Training complete in {wall_min:.1f} min")
+    if rank == 0:
+        with open(os.path.join(model_cfg.model_path, "runtime.json"),
+                  "w") as f:
+            json.dump({"minutes": wall_min, "iterations": opt.iterations}, f)
+    say(f"[>] Training complete in {wall_min:.1f} min")
     reporter.close()
     return trainer
 

@@ -5,6 +5,9 @@ directory's cameras.json and input.ply, builds one Camera per view on the
 scene's device, and (load_images=True) the (V, C, H, W) GT, alpha and
 luma-at-NCC-scale stacks there. `training_setup` builds the per-view
 nearest (multi-view loss) and nearby (roughness loss) neighbor tables.
+`load_train_image_subset` (data-parallel ranks that draw from their own
+view partition, parallel/dp.py) reads only a subset of the views from
+disk; the other rows of the stacks are zeros (alpha ones).
 The cameras stay a Python list and the neighbor tables stay numpy on the
 host: the trainer picks a view and its neighbor on the host, so nothing is
 indexed on the device by a device value.
@@ -130,6 +133,7 @@ class Scene:
         self.alpha_masks = None
         self.gray_images = None
         self.ncc_scale = 1.0
+        self.loaded_views = None   # the views read from disk; None: all
         self._test_images = None
         if load_images and self.train_cameras:
             self._load_train_images()
@@ -149,15 +153,32 @@ class Scene:
             rgb = rgb * alpha + (1.0 - alpha)
         return rgb, alpha
 
+    def _keep(self, i: int) -> bool:
+        return self.loaded_views is None or i in self.loaded_views
+
     def _load_train_images(self):
-        """Fill the (V, 3, H, W) GT and (V, 1, H, W) alpha stacks."""
+        """Fill the (V, 3, H, W) GT and (V, 1, H, W) alpha stacks; rows of
+        views outside `loaded_views` are zeros (alpha ones), unread."""
         rgbs, alphas = [], []
-        for ci, cam in zip(self.train_camera_infos, self.train_cameras):
+        for i, (ci, cam) in enumerate(zip(self.train_camera_infos,
+                                          self.train_cameras)):
+            if not self._keep(i):
+                rgbs.append(np.zeros((3, cam.height, cam.width), np.float32))
+                alphas.append(np.ones((1, cam.height, cam.width), np.float32))
+                continue
             rgb, alpha = self._view_rgb(ci, (cam.width, cam.height))
             rgbs.append(rgb)
             alphas.append(alpha if alpha is not None else np.ones_like(rgb[:1]))
         self.gt_images = torch.from_numpy(np.stack(rgbs, 0)).to(self.device)
         self.alpha_masks = torch.from_numpy(np.stack(alphas, 0)).to(self.device)
+
+    def load_train_image_subset(self, subset):
+        """Read the GT (and, at NCC scale, gray) images of the train views in
+        `subset` only, after training_setup built the neighbor tables
+        (parallel/dp.py::host_view_closure gives a rank's subset)."""
+        self.loaded_views = frozenset(int(v) for v in subset)
+        self._load_train_images()
+        self._populate_gray_images()
 
     def load_test_images(self) -> list:
         """GT images of the held-out split as host numpy, loaded at first
@@ -186,11 +207,14 @@ class Scene:
         if self.ncc_scale == 1.0:
             rgb = self.gt_images
         else:
-            rgb = torch.from_numpy(np.stack([
-                self._view_rgb(ci, (int(cam.width / self.ncc_scale),
-                                    int(cam.height / self.ncc_scale)))[0]
-                for ci, cam in zip(self.train_camera_infos,
-                                   self.train_cameras)], 0)).to(self.device)
+            rgbs = []
+            for i, (ci, cam) in enumerate(zip(self.train_camera_infos,
+                                              self.train_cameras)):
+                size = (int(cam.width / self.ncc_scale),
+                        int(cam.height / self.ncc_scale))
+                rgbs.append(self._view_rgb(ci, size)[0] if self._keep(i)
+                            else np.zeros((3, size[1], size[0]), np.float32))
+            rgb = torch.from_numpy(np.stack(rgbs, 0)).to(self.device)
         self.gray_images = (rgb[:, 0:1] * 0.299 + rgb[:, 1:2] * 0.587
                             + rgb[:, 2:3] * 0.114)
 

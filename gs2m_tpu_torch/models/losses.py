@@ -62,11 +62,16 @@ def rgb_loss(pred: torch.Tensor, gt: torch.Tensor,
     return (1.0 - lambda_ssim) * l1_loss(pred, gt) + lambda_ssim * ls
 
 
+def binary_cross_entropy_map(pred: torch.Tensor,
+                             target: torch.Tensor) -> torch.Tensor:
+    """Per-pixel BCE (the band-sharded objective sums a masked slice)."""
+    p = torch.clamp(pred, 1e-7, 1.0 - 1e-7)
+    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+
+
 def binary_cross_entropy(pred: torch.Tensor,
                          target: torch.Tensor) -> torch.Tensor:
-    p = torch.clamp(pred, 1e-7, 1.0 - 1e-7)
-    return torch.mean(-(target * torch.log(p)
-                        + (1.0 - target) * torch.log(1.0 - p)))
+    return torch.mean(binary_cross_entropy_map(pred, target))
 
 
 # --- flattening prior -------------------------------------------------------------

@@ -3,7 +3,9 @@
 Port of gs2m_tpu/ops/normals.py: back-project the depth image through K^-1
 into camera (optionally world) space, take the cross product of the
 horizontal and vertical central differences, normalize, zero the 1-px
-border.
+border. `row0` offsets the pixel rows: a depth band of a larger frame
+(band-sharded rendering, parallel/sp.py) back-projects with its global
+rows.
 """
 from __future__ import annotations
 
@@ -12,12 +14,13 @@ import torch.nn.functional as F
 
 
 def depth_to_points(depth: torch.Tensor, K: torch.Tensor,
-                    c2w: torch.Tensor | None = None) -> torch.Tensor:
+                    c2w: torch.Tensor | None = None,
+                    row0: int = 0) -> torch.Tensor:
     """(H, W) depth -> (H, W, 3) camera-space (or world if c2w given) points
-    on the integer pixel grid 0..W-1 / 0..H-1."""
+    on the integer pixel grid 0..W-1 / row0..row0+H-1."""
     H, W = depth.shape
     y, x = torch.meshgrid(
-        torch.arange(H, dtype=depth.dtype, device=depth.device),
+        row0 + torch.arange(H, dtype=depth.dtype, device=depth.device),
         torch.arange(W, dtype=depth.dtype, device=depth.device), indexing="ij")
     pix = torch.stack([x * depth, y * depth, depth], dim=-1)
     # inv_ex: no singularity check, which would wait for the card.
@@ -41,7 +44,10 @@ def points_to_normals(pts: torch.Tensor) -> torch.Tensor:
 
 
 def normal_from_depth_image(depth: torch.Tensor, K: torch.Tensor,
-                            c2w: torch.Tensor | None = None) -> torch.Tensor:
+                            c2w: torch.Tensor | None = None,
+                            row0: int = 0) -> torch.Tensor:
     """(H, W) depth -> (H, W, 3) normals in world space (camera space if
-    c2w is None)."""
-    return points_to_normals(depth_to_points(depth, K, c2w))
+    c2w is None). With `row0` (a depth band) the 1-px zero border lands on
+    the band's edges; banded callers zero the true image border
+    themselves."""
+    return points_to_normals(depth_to_points(depth, K, c2w, row0=row0))

@@ -87,6 +87,30 @@ def _tile_index(v: torch.Tensor, tile: int, hi: int) -> torch.Tensor:
     return torch.clamp((v / tile).to(torch.int32), 0, hi)
 
 
+def crop_projected(proj: Projected, y0: int, local_height: int,
+                   tile: int) -> Projected:
+    """Shift a Projected into the window rows [y0, y0 + local_height), y0 a
+    multiple of `tile` (band-sharded rendering, parallel/sp.py): screen y
+    moves by -y0, the tile rect is re-clamped to the local grid and
+    Gaussians whose rect misses the window are invalidated. Binning and the
+    blend then run unchanged at the local height; for y0 a multiple of the
+    tile the shift is exact in float32, so each band's pixels see the
+    full-frame render's numbers."""
+    y0_t = y0 // tile
+    local_gy = (local_height + tile - 1) // tile
+    means2d = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1] - y0], -1)
+    rmin_y = torch.clamp(proj.rect_min[:, 1] - y0_t, 0, local_gy)
+    rmax_y = torch.clamp(proj.rect_max[:, 1] - y0_t, 0, local_gy)
+    area = (proj.rect_max[:, 0] - proj.rect_min[:, 0]) * (rmax_y - rmin_y)
+    valid = proj.valid & (area > 0)
+    return proj._replace(
+        means2d=torch.where(valid[:, None], means2d, -1e4),
+        rect_min=torch.stack([proj.rect_min[:, 0], rmin_y], -1),
+        rect_max=torch.stack([proj.rect_max[:, 0], rmax_y], -1),
+        tiles_touched=torch.where(valid, area, 0).to(torch.int32),
+        valid=valid)
+
+
 def project(gaussians: Gaussians, camera: Camera, active_sh_degree: int,
             opacities: torch.Tensor, tile: int = 16,
             with_colors: bool = True) -> Projected:

@@ -42,25 +42,43 @@ class DensifyStats:
 
 
 @torch.no_grad()
-def update_stats(stats: DensifyStats, sink_grad: torch.Tensor,
-                 abs_sink_grad: torch.Tensor, visibility: torch.Tensor,
-                 radii: torch.Tensor, observe: torch.Tensor,
-                 width: int, height: int) -> DensifyStats:
-    """Per-step accumulation. The sink gradients are d/d(pixel mean2d); the
-    statistics are NDC-space (x 0.5*W, 0.5*H), as in the JAX package."""
+def stats_contribution(sink_grad: torch.Tensor, abs_sink_grad: torch.Tensor,
+                       visibility: torch.Tensor, radii: torch.Tensor,
+                       observe: torch.Tensor, width: int,
+                       height: int) -> DensifyStats:
+    """One view's contribution to the statistics: the NDC-space (x 0.5*W,
+    0.5*H) norms of the sink gradients (d/d pixel mean2d) and the
+    visibility, and the radii of the observed, visible Gaussians. A
+    data-parallel step reduces these over its views (sums; a max for the
+    radii) before accumulate_stats, as the JAX package's DP step does."""
     def ndc_norm(x):
         return torch.sqrt((x[:, 0] * (0.5 * width)) ** 2
                           + (x[:, 1] * (0.5 * height)) ** 2)
 
-    g = ndc_norm(sink_grad)
-    ga = ndc_norm(abs_sink_grad)
     vis = visibility.float()
     radmask = ((observe > 0) & visibility).float()
+    return DensifyStats(accum=ndc_norm(sink_grad) * vis,
+                        accum_abs=ndc_norm(abs_sink_grad) * vis, denom=vis,
+                        max_radii2d=radii.float() * radmask)
+
+
+@torch.no_grad()
+def accumulate_stats(stats: DensifyStats, step: DensifyStats) -> DensifyStats:
+    """Add a step's (possibly reduced) contribution to the statistics."""
     return DensifyStats(
-        accum=stats.accum + g * vis,
-        accum_abs=stats.accum_abs + ga * vis,
-        denom=stats.denom + vis,
-        max_radii2d=torch.maximum(stats.max_radii2d, radii.float() * radmask))
+        accum=stats.accum + step.accum,
+        accum_abs=stats.accum_abs + step.accum_abs,
+        denom=stats.denom + step.denom,
+        max_radii2d=torch.maximum(stats.max_radii2d, step.max_radii2d))
+
+
+def update_stats(stats: DensifyStats, sink_grad: torch.Tensor,
+                 abs_sink_grad: torch.Tensor, visibility: torch.Tensor,
+                 radii: torch.Tensor, observe: torch.Tensor,
+                 width: int, height: int) -> DensifyStats:
+    """Per-step accumulation of one view (the single-view step)."""
+    return accumulate_stats(stats, stats_contribution(
+        sink_grad, abs_sink_grad, visibility, radii, observe, width, height))
 
 
 @torch.no_grad()

@@ -19,13 +19,28 @@ package's own non-pair branch: two render() calls. Its backward compaction
 terminated. The flag stays in PipelineConfig for cfg_args.json
 compatibility and has no effect here, like `term_cut` and `use_pallas`.
 
+Data parallelism (parallel/dp.py): with `data_parallel`, each rank of a
+torch.distributed group trains on its own view of a D-view batch per
+step and the step reduces the gradients, statistics and metrics over the
+group before the update, so the replicated state (parameters, Adam
+moments, statistics, light) stays bit-equal on every rank. Every host-side
+decision (capacity growth, densification, heal, trim, opacity reset) reads
+only replicated or reduced values, so every rank takes the same branch.
+Without `distributed` every rank draws the same global batch from the
+shared host rng and takes its own entry; with it each rank draws from its
+own partition of the views (parallel/dp.py::partition_views).
+
 Randomness: host-side choices (the view order, each step's nearest view
 and, in the material stage, its nearby view) come from a numpy Generator
-seeded from `seed`, as the JAX package's view order does; device-side
-draws (the multi-view and roughness pixel samples, the split noise) from
-one torch.Generator on the device seeded from `seed`. Host syncs happen
-only at the 100-iteration boundaries (overflow check, densification) and
-at the trim; the loss-activity counters count host-side choices.
+seeded from `seed`, as the JAX package's view order does. Device-side
+draws come from two torch.Generators on the device: the per-view pixel
+samples of the multi-view and roughness losses from `generator`, one
+stream per rank, and the split noise of densification, which changes the
+replicated state, from `replica_generator`, one stream that advances
+identically on every rank (the JAX package's base key and per-device
+splits). Host syncs happen only at the 100-iteration boundaries (overflow
+check, densification) and at the trim; the loss-activity counters count
+host-side choices (under data parallelism, reduced device counts).
 """
 from __future__ import annotations
 
@@ -139,13 +154,16 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
 def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
                     opt: OptimConfig, scene: Scene, instance_cap: int,
                     geometry_stage: bool, material_stage: bool = False,
-                    pbr_fns: dict | None = None):
+                    pbr_fns: dict | None = None, reduce=None):
     """The step of one stage: loss, gradients, densification statistics and
     the in-place Adam update; in the material stage also the light's Adam
     step (at opacity_lr, then clamped to >= 0), in place on `light` and
-    `light_opt_state`. Its stages are profiler ranges ("step/forward",
-    "step/render", "step/pbr", "step/backward", "step/update",
-    "step/light"), which apps/train.py::step_stages reads."""
+    `light_opt_state`. `reduce` (parallel/dp.py::make_dp_train_step) maps
+    this view's (parameter grads, light grad, statistics contribution,
+    metrics) to the data-parallel batch's before the update. Its stages are
+    profiler ranges ("step/forward", "step/render", "step/pbr",
+    "step/backward", "step/reduce", "step/update", "step/light"), which
+    apps/train.py::step_stages reads."""
     xyz_lr_fn = xyz_lr_schedule(opt, scene.cameras_extent)
     H = scene.train_cameras[0].height
     W = scene.train_cameras[0].width
@@ -178,24 +196,29 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
         with record_function("step/backward"):
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
                 leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        if material_stage:
-            light_grad = grads.pop()
-        with record_function("step/update"):
-            stats = D.update_stats(stats, grads[-2], grads[-1],
-                                   aux["visibility"], aux["radii"],
-                                   aux["observe"], W, H)
-            lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
-            adam_update(gaussians.params_dict(), dict(zip(params, grads)),
-                        opt_state, lrs)
-        if material_stage:
-            with record_function("step/light"):
-                pbr_fns["light_update"](light, light_grad, light_opt_state,
-                                        opt.opacity_lr)
+        light_grad = grads.pop() if material_stage else None
+        param_grads = dict(zip(params, grads))
         metrics = {"loss": loss.detach(), "Lrgb": aux["Lrgb"].detach(),
                    "Lgeo": aux["Lgeo"].detach(), "Lmat": aux["Lmat"].detach(),
                    "dropped": aux["dropped"],
                    "mv_active": int(geometry_stage and has_nearest),
                    "rough_active": int(material_stage and has_nearby)}
+        with record_function("step/update"):
+            contrib = D.stats_contribution(grads[-2], grads[-1],
+                                           aux["visibility"], aux["radii"],
+                                           aux["observe"], W, H)
+        if reduce is not None:
+            with record_function("step/reduce"):
+                param_grads, light_grad, contrib, metrics = reduce(
+                    param_grads, light_grad, contrib, metrics)
+        with record_function("step/update"):
+            stats = D.accumulate_stats(stats, contrib)
+            lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
+            adam_update(gaussians.params_dict(), param_grads, opt_state, lrs)
+        if material_stage:
+            with record_function("step/light"):
+                pbr_fns["light_update"](light, light_grad, light_opt_state,
+                                        opt.opacity_lr)
         return gaussians, opt_state, stats, metrics
 
     return step
@@ -233,9 +256,21 @@ class Trainer:
 
     def __init__(self, model_cfg: ModelConfig, pipe: PipelineConfig,
                  opt: OptimConfig, scene: Scene, seed: int = 0,
-                 pbr_fns: dict | None = None):
+                 pbr_fns: dict | None = None, data_parallel: bool = False,
+                 group=None, distributed: bool = False):
         self.model_cfg, self.pipe, self.opt, self.scene = model_cfg, pipe, opt, scene
         self.device = scene.device
+        # Data parallelism: one view per rank of `group` (None: the default
+        # group) per step; without an initialized group, a world of one.
+        # `distributed`: each rank draws from its own view partition (and
+        # may have loaded only that partition's closure of images).
+        self.data_parallel = data_parallel
+        self.group = group
+        self.rank, self.n_devices = 0, 1
+        if data_parallel:
+            from gs2m_tpu_torch.parallel.dp import rank_and_world
+            self.rank, self.n_devices = rank_and_world(group)
+        self.distributed = distributed and self.n_devices > 1
         # The material stage starts with geometry.
         self.material_from_iter = (opt.geometry_from_iter if model_cfg.material
                                    else opt.iterations)
@@ -276,10 +311,17 @@ class Trainer:
         # on the device (no sync per step).
         self._dropped_window = torch.zeros((), dtype=torch.int32,
                                            device=self.device)
-        self.mv_active_count = 0
-        self.rough_active_count = 0
+        # Steps where the multi-view / roughness terms fired: host ints, or
+        # device counts under data parallelism (read by the properties).
+        self._mv_active = 0
+        self._rough_active = 0
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # Per-view draws: one stream per rank (rank 0's is the single-view
+        # trainer's); the split noise: one stream, the same on every rank.
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + 1_000_003 * self.rank)
+        self.replica_generator = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
         self._view_pool: list[int] = []
         self.iteration = 0
         self.last_densify_info: dict | None = None
@@ -308,11 +350,34 @@ class Trainer:
         key = (geometry_stage, material_stage, self.gaussians.capacity,
                self.instance_cap)
         if key not in self._steps:
-            self._steps[key] = make_train_step(
-                self.model_cfg, self.pipe, self.opt, self.scene,
-                self.instance_cap, geometry_stage, material_stage,
-                self.pbr_fns)
+            if self.data_parallel:
+                from gs2m_tpu_torch.parallel.dp import make_dp_train_step
+                self._steps[key] = make_dp_train_step(
+                    self.model_cfg, self.pipe, self.opt, self.scene,
+                    self.instance_cap, geometry_stage, material_stage,
+                    self.pbr_fns, group=self.group)
+            else:
+                self._steps[key] = make_train_step(
+                    self.model_cfg, self.pipe, self.opt, self.scene,
+                    self.instance_cap, geometry_stage, material_stage,
+                    self.pbr_fns)
         return self._steps[key]
+
+    @property
+    def mv_active_count(self) -> int:
+        return int(self._mv_active)
+
+    @mv_active_count.setter
+    def mv_active_count(self, value: int):
+        self._mv_active = value
+
+    @property
+    def rough_active_count(self) -> int:
+        return int(self._rough_active)
+
+    @rough_active_count.setter
+    def rough_active_count(self, value: int):
+        self._rough_active = value
 
     def choose_views(self, material_stage: bool):
         """The next view, its nearest view and, in the material stage, its
@@ -328,9 +393,26 @@ class Trainer:
                 self.rng, scene.nearby_table[view], scene.nearby_mask[view], 0)
         return view, nearest, has_nearest, nearby, has_nearby
 
+    def draw_batch(self, material_stage: bool):
+        """This rank's entry of the step's view batch (choose_views' tuple).
+        Under data parallelism without `distributed`, every rank draws the
+        whole batch of n_devices views from the shared host rng and takes
+        entry `rank`; with it, each rank draws its own view from its own
+        partition."""
+        if self.distributed or self.n_devices == 1:
+            return self.choose_views(material_stage)
+        batch = [self.choose_views(material_stage)
+                 for _ in range(self.n_devices)]
+        return batch[self.rank]
+
     def _next_view(self) -> int:
         if not self._view_pool:
-            pool = list(range(len(self.scene.train_cameras)))
+            n = len(self.scene.train_cameras)
+            if self.distributed:
+                from gs2m_tpu_torch.parallel.dp import partition_views
+                pool = partition_views(n, self.rank, self.n_devices).tolist()
+            else:
+                pool = list(range(n))
             self.rng.shuffle(pool)
             self._view_pool = pool
         return self._view_pool.pop()
@@ -344,7 +426,7 @@ class Trainer:
             self.active_sh_degree += 1
 
         geometry_stage, material_stage = self._stage_flags(it)
-        view, nearest, has_nearest, nearby, has_nearby = self.choose_views(
+        view, nearest, has_nearest, nearby, has_nearby = self.draw_batch(
             material_stage)
         (self.gaussians, self.opt_state, self.stats,
          metrics) = self._get_step(geometry_stage, material_stage)(
@@ -357,8 +439,8 @@ class Trainer:
         # window max catches drop bursts between the boundary checks too.
         self._dropped_window = torch.maximum(self._dropped_window,
                                              metrics["dropped"])
-        self.mv_active_count += metrics["mv_active"]
-        self.rough_active_count += metrics["rough_active"]
+        self._mv_active = self._mv_active + metrics["mv_active"]
+        self._rough_active = self._rough_active + metrics["rough_active"]
         if it % 100 == 0:
             dw = int(self._dropped_window)
             if dw > 0:
@@ -382,7 +464,7 @@ class Trainer:
                     opt.opacity_prune_threshold, self.scene.cameras_extent,
                     opt.percent_dense, opt.radii2D_threshold,
                     use_radii_threshold=it > opt.opacity_reset_interval,
-                    generator=self.generator)
+                    generator=self.replica_generator)
                 self.last_densify_info = {k: int(v) for k, v in info.items()}
 
         if (opt.use_multi_view_trim and it % 1000 == 0
@@ -495,7 +577,10 @@ class Trainer:
         None: the port has no term_cut; the light and its Adam state None
         without the material stage) plus the state that decides the
         next steps, so a resumed run repeats the uninterrupted one: the host
-        rng, the device generator, the view pool and the drop window."""
+        rng, the device generators, the view pool and the drop window.
+        Under data parallelism every rank must call it (the ranks' own
+        rng, per-view generator and view pool are gathered into "ranks");
+        rank 0 writes the file."""
         def host(x):
             return x.detach().cpu().numpy()
 
@@ -522,13 +607,21 @@ class Trainer:
                 "mu": host(self.light_opt_state.mu["light"]),
                 "nu": host(self.light_opt_state.nu["light"]),
                 "count": self.light_opt_state.count}),
-            "mv_active_count": int(self.mv_active_count),
-            "rough_active_count": int(self.rough_active_count),
-            "rng": self.rng.bit_generator.state,
-            "generator": host(self.generator.get_state()),
-            "view_pool": list(self._view_pool),
+            "mv_active_count": self.mv_active_count,
+            "rough_active_count": self.rough_active_count,
+            "replica_generator": host(self.replica_generator.get_state()),
             "dropped_window": int(self._dropped_window),
         }
+        local = {"rng": self.rng.bit_generator.state,
+                 "generator": host(self.generator.get_state()),
+                 "view_pool": list(self._view_pool)}
+        state.update(local)
+        if self.n_devices > 1:
+            import torch.distributed as dist
+            state["ranks"] = [None] * self.n_devices
+            dist.all_gather_object(state["ranks"], local, self.group)
+        if self.rank != 0:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "wb") as f:
             pickle.dump(state, f)
@@ -577,9 +670,21 @@ class Trainer:
             self.light_opt_state = AdamState(mu={"light": dev_t(lo["mu"])},
                                              nu={"light": dev_t(lo["nu"])},
                                              count=int(lo["count"]))
-        self.rng.bit_generator.state = state["rng"]
-        self.generator.set_state(torch.from_numpy(state["generator"]))
-        self._view_pool = list(state["view_pool"])
+        ranks = state.get("ranks")
+        if (ranks is not None or self.n_devices > 1) and (
+                ranks is None or len(ranks) != self.n_devices):
+            raise ValueError(
+                f"checkpoint {path} was written by "
+                f"{1 if ranks is None else len(ranks)} rank(s); it resumes "
+                f"only at that world size, not at {self.n_devices}")
+        local = state if ranks is None else ranks[self.rank]
+        self.rng.bit_generator.state = local["rng"]
+        self.generator.set_state(torch.from_numpy(local["generator"]))
+        self._view_pool = list(local["view_pool"])
+        # Checkpoints from before the split noise had its own stream carry
+        # one generator.
+        self.replica_generator.set_state(torch.from_numpy(
+            state.get("replica_generator", state["generator"])))
         self._dropped_window = torch.tensor(state["dropped_window"],
                                             dtype=torch.int32, device=dev)
         # Restored state invalidates the steps built for the old shapes.

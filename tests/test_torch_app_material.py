@@ -94,14 +94,15 @@ def jax_material_model(scene_dir, tmp_path_factory):
     return model
 
 
-def test_jax_material_snapshot_renders_like_the_jax_app(jax_material_model):
-    model = jax_material_model
-    common = ["-m", str(model), "--device", "cpu"]
-    japp.main(common + ["--label", "jax"])
-    stats = tapp.main(common + ["--label", "port"])["views"]
+def render_like_the_jax_app(model, flags: list, tag: str):
+    """Both apps render `model` with `flags`; the port's files are the JAX
+    app's, PNGs within 1 LSB."""
+    common = ["-m", str(model), "--device", "cpu"] + flags
+    japp.main(common + ["--label", f"jax{tag}"])
+    stats = tapp.main(common + ["--label", f"port{tag}"])["views"]
     assert all(s["finite"] and s["dropped"] == 0 for s in stats)
     for split in ("train", "test"):
-        ja, tp = model / split / "jax_50", model / split / "port_50"
+        ja, tp = model / split / f"jax{tag}_50", model / split / f"port{tag}_50"
         names = _files(ja)
         assert "envmap.png" in names and names == _files(tp), split
         assert all(any(n.startswith(d + "/") for n in names)
@@ -111,6 +112,17 @@ def test_jax_material_snapshot_renders_like_the_jax_app(jax_material_model):
             b = np.asarray(Image.open(tp / n), np.int32)
             assert a.shape == b.shape, n
             assert np.abs(a - b).max() <= 1, (split, n)
+
+
+def test_jax_material_snapshot_renders_like_the_jax_app(jax_material_model):
+    render_like_the_jax_app(jax_material_model, [], "")
+
+
+def test_jax_material_snapshot_renders_in_bands_like_the_jax_app(
+        jax_material_model):
+    """--spatial 2 (parallel/sp.py): the gathered bands feed the PBR pass and
+    the material maps, against the JAX app's own --spatial 2."""
+    render_like_the_jax_app(jax_material_model, ["--spatial", "2"], "sp")
 
 
 GATE_KEYS = {"scene", "protocol", "resolution", "iterations", "train_minutes",

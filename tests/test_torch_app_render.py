@@ -92,10 +92,25 @@ def test_default_device_raises_without_cuda(model_dir):
         tapp.main(["-m", str(model_dir), "--label", "nodev"])
 
 
-# The mesh options and presets are ported (tests/test_torch_app_mesh.py),
-# and material models (tests/test_torch_app_material.py); --spatial > 1
-# still raises.
-@pytest.mark.parametrize("flags", [["--spatial", "2"]])
-def test_unported_options_raise(model_dir, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapp.main(["-m", str(model_dir), "--device", "cpu"] + flags)
+# --spatial N renders each view in N bands (parallel/sp.py): the same files
+# as the full-frame app, PNGs within 1 LSB, as the JAX package holds its own
+# app (tests/test_parallel.py:339). 48 rows make 2 bands of 32 (the second
+# with 16 rows inside the frame) and 3 bands of 16.
+@pytest.mark.parametrize("bands", [2, 3])
+def test_spatial_option_matches_full_frame(model_dir, bands):
+    common = ["-m", str(model_dir), "--device", "cpu", "--normal_sobel"]
+    full = tapp.main(common + ["--label", f"full{bands}"])["views"]
+    sp = tapp.main(common + ["--spatial", str(bands), "--label",
+                             f"sp{bands}"])["views"]
+    assert [s["dropped"] for s in sp] == [0] * len(full)
+    assert ([s["num_instances"] for s in sp]
+            == [s["num_instances"] for s in full])
+    for split in ("train", "test"):
+        a = model_dir / split / f"full{bands}_100"
+        b = model_dir / split / f"sp{bands}_100"
+        names = _files(a)
+        assert names and names == _files(b), split
+        for n in names:
+            x = np.asarray(Image.open(a / n), np.int32)
+            y = np.asarray(Image.open(b / n), np.int32)
+            assert x.shape == y.shape and np.abs(x - y).max() <= 1, n

@@ -8,7 +8,9 @@ warps and tiles, opacities next to 1/255, the largest chunks, tiles whose
 pixels all fall to T <= 0.5 early, where K3 retires them); and the mesh
 path (TSDF fusion, marching tetrahedra) on the card against the CPU; and
 the training step's properties on the card: no host sync per step and
-bit-equal reruns, in the geometry and the material stage.
+bit-equal reruns, in the geometry and the material stage; and the
+parallel paths on the card: a 4-band render against the full frame and
+the one-rank data-parallel step against the single-view step.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -389,6 +391,71 @@ def test_train_steps_are_bit_reproducible(cuda, tmp_path, material):
     if material:
         assert trainer.rough_active_count > 0
     assert chip_smoke.differing(*runs) == []
+
+
+def test_sp_render_on_card_matches_full_frame(cuda):
+    """parallel/sp.py on the card: 4 bands of a 144x104 frame (padded to
+    128 rows; the last band has 8 rows inside the frame) against the full
+    frame, at K1's gate: radii equal, observe counts and images within the
+    share K1 is held to."""
+    from gs2m_tpu_torch.ops.rasterize import (build_features,
+                                              rasterize_from_projected)
+    from gs2m_tpu_torch.parallel.sp import make_sp_render
+
+    g = Gaussians.from_numpy(*scene(7, 4000), device=cuda)
+    cam = camera(144, 104, cuda)
+    bg = torch.full((3,), 0.25, device=cuda)
+    op = g.get_opacity[:, 0]
+    full = rasterize_from_projected(project(g, cam, 2, op), op,
+                                    build_features(g, cam), bg, cam,
+                                    feature_count=9, chunk=128,
+                                    instance_cap=2 ** 16)
+    n0 = blend.LAUNCHES["blend_fwd", 16]
+    out = make_sp_render([cuda], 4, 104, feature_count=9,
+                         active_sh_degree=2, chunk=128,
+                         instance_cap_per_band=2 ** 15)(g, cam, bg)
+    assert blend.LAUNCHES["blend_fwd", 16] == n0 + 4
+    assert int(out.dropped) == int(full.dropped) == 0
+    assert torch.equal(out.radii, full.radii)
+    assert float((out.observe == full.observe).float().mean()) >= 0.9999
+    for k in ("color", "buffer", "final_T"):
+        a, b = getattr(out, k), getattr(full, k)
+        assert a.shape == b.shape, k
+        assert float(((a - b).abs() > 1e-5).float().mean()) <= 1e-4, k
+
+
+def test_world_of_one_dp_step_on_card_equals_the_step(cuda, tmp_path):
+    """The data-parallel step in a one-rank gloo group on the card (its
+    buffers staged through pinned host memory) is the single-view step, bit
+    for bit: parameters, Adam moments, statistics and loss."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from gs2m_tpu_torch.parallel.dp import make_dp_train_step
+    from gs2m_tpu_torch.train.trainer import make_train_step
+
+    trainer = small_trainer(cuda, tmp_path, False, geometry_from=0)
+    snap = chip_smoke.snapshot(trainer)
+    states = []
+    for dp in (False, True):
+        chip_smoke.restore(trainer, snap)
+        args = (trainer.model_cfg, trainer.pipe, trainer.opt, trainer.scene,
+                trainer.instance_cap, True)
+        if dp:
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        try:
+            step = make_dp_train_step(*args) if dp else make_train_step(*args)
+            (trainer.gaussians, trainer.opt_state, trainer.stats,
+             trainer.last_metrics) = step(
+                trainer.gaussians, trainer.opt_state, trainer.stats, 1, 2,
+                True, 1, 0, trainer.generator)
+            torch.cuda.synchronize()
+        finally:
+            if dp:
+                dist.destroy_process_group()
+        states.append(chip_smoke.training_state(trainer))
+    assert chip_smoke.differing(*states) == []
 
 
 def test_gather_rows_backward_is_deterministic(cuda):

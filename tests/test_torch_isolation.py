@@ -42,7 +42,9 @@ def test_port_has_its_modules():
                 "mesh/cluster", "apps/metrics", "apps/quality_gate",
                 # material stage
                 "ops/gather", "pbr/__init__", "pbr/cubemap", "pbr/shade",
-                "pbr/bsdf", "pbr/render", "apps/material_gate"):
+                "pbr/bsdf", "pbr/render", "apps/material_gate",
+                # parallelism
+                "parallel/__init__", "parallel/dp", "parallel/sp"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 

@@ -355,15 +355,44 @@ def test_train_app_then_render_app(scene_dir, tmp_path):
     assert (model / "test" / "ours_8" / "render").is_dir()
 
 
-# Checkpoints and the profiler flag are ported (tests/test_torch_app_mesh.py),
-# and material models (tests/test_torch_app_material.py); parallelism still
-# raises.
-@pytest.mark.parametrize("flags", [["--data_parallel"], ["--distributed"]])
-def test_unported_train_options_raise(scene_dir, tmp_path, flags):
+@pytest.fixture(scope="module")
+def plain_app_run(scene_dir, tmp_path_factory):
+    """The train app without data parallelism: 4 iterations (2 warmup, 2
+    geometry with a densification), the reference of the world-of-one
+    data-parallel runs."""
     from gs2m_tpu_torch.apps import train as train_app
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_app.main(["-s", scene_dir, "-m", str(tmp_path), "--device",
-                        "cpu"] + flags)
+    return train_app.main(_short_app_argv(
+        scene_dir, tmp_path_factory.mktemp("plain") / "model"))
+
+
+def _short_app_argv(scene_dir, model):
+    argv = ["-s", scene_dir, "-m", str(model), "--device", "cpu", "--chunk",
+            "64", "--sh_degree", "1", "--iterations", "4",
+            "--geometry_from_iter", "2", "--densify_from_iter", "1",
+            "--densification_interval", "3", "--test_iterations", "99",
+            "--save_iterations", "4", "--quiet"]
+    for k, v in OPT_KW.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+# A plain launch (no torchrun environment) is a world of one: the
+# data-parallel trainer runs the single-view step bit for bit.
+@pytest.mark.parametrize("flags", [["--data_parallel"],
+                                   ["--data_parallel", "--distributed"]])
+def test_train_app_data_parallel_world_of_one(scene_dir, tmp_path, flags,
+                                              plain_app_run):
+    from gs2m_tpu_torch.apps import train as train_app
+    tr = train_app.main(_short_app_argv(scene_dir, tmp_path / "m") + flags)
+    ref = plain_app_run
+    assert (tr.n_devices, tr.rank, tr.iteration) == (1, 0, 4)
+    assert tr.last_densify_info == ref.last_densify_info is not None
+    assert tr.mv_active_count == ref.mv_active_count > 0
+    assert torch.equal(tr.last_metrics["loss"], ref.last_metrics["loss"])
+    for k, v in ref.gaussians.params_dict().items():
+        assert torch.equal(tr.gaussians.params_dict()[k], v), k
+    assert torch.equal(tr.stats.accum, ref.stats.accum)
+    assert (tmp_path / "m" / "point_cloud" / "iteration_4").is_dir()
 
 
 def test_train_app_default_device_raises_without_cuda(scene_dir, tmp_path,
