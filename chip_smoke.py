@@ -96,6 +96,34 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 12 views, 3,000 points, 600 iterations, material from 300):
                 held to finite losses, a roughness term that fired, a light
                 that changed and stays >= 0, and a finite PBR test PSNR
+  viewer        the SIBR bridge (apps/network_gui.py) over a loopback
+                socket with train-full's Gaussians at 800x600: five requests
+                for view 0, each reply within 1 LSB of render()'s image, K1
+                launched once per request, ms per request
+  train-opaque- the binning termination cut (ops/binning.py term_cut) on
+  cut           train-full's scene at bench_train.py's opaque preset
+                (log-scale log 0.02, opacity 0.9), caps presized from a probe
+                of every view (the instance cap from the uncut demand, as a
+                trainer without the cut holds it): ten geometry steps with
+                the cut across iteration 100, where the instance cap must
+                shrink with nothing dropped, and the trim's counter on the
+                cut layout (the counted path: K1 20, K2 20, K3 8); on view 0
+                the cut and base layouts, the cut's own ms and peak memory,
+                K1's image, final T and observe bit-equal between the two
+                layouts, K2's per-Gaussian gradients at the gate, K3 equal,
+                then K1/K2/K3 against their plain versions on the cut
+                layout; then ten cut and ten uncut steps from one state in
+                turns (ms, a profile of each), and the first step's loss and
+                gradients cut against uncut (printed, not gated)
+  LPIPS         utils/lpips.py on the card with synthetic VGG16 weights: two
+                800x600 images within rtol 1e-4 of the CPU, ms per pair; the
+                metrics app's LPIPS column on the render-full model with
+                GS2M_LPIPS_WEIGHTS set
+  composite     the quality gate on the composite scene (sphere + box +
+                ground plane, --production --smoke --scene composite): test
+                PSNR, chamfer against the analytic surface and the mesh's
+                stage times; fails only on a non-finite score or an empty
+                mesh (no reference number exists)
 
 Launch counts are zeroed just before each path and read just after; every
 kernel of a path must have launched, as often as its schedule implies.
@@ -355,12 +383,12 @@ def k2_probe(defines: tuple, args, kw):
 
 
 def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
-                 band: tuple | None = None):
+                 band: tuple | None = None, bin_kw: dict | None = None):
     """K1 against its plain version on the binning of one view, with the
     value width (V) that `feature_count` gives; with `band` (y0, rows), on
-    that band's binning as parallel/sp.py renders it. Returns (report,
-    context) where the context carries the binning and K1's outputs to K2
-    and K3."""
+    that band's binning as parallel/sp.py renders it; `bin_kw` is passed to
+    bin_gaussians (the termination cut's layout). Returns (report, context)
+    where the context carries the binning and K1's outputs to K2 and K3."""
     import torch
 
     from gs2m_tpu_torch.ops import blend
@@ -378,7 +406,7 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
         H = band[1]
     grid_y, grid_x = num_tiles(H, W, 16)
     T = grid_y * grid_x
-    binning = bin_gaussians(proj, H, W, 16, cap, chunk, op)
+    binning = bin_gaussians(proj, H, W, 16, cap, chunk, op, **(bin_kw or {}))
     if int(binning.dropped) != 0:
         fail(f"kernel phase binning dropped {int(binning.dropped)}")
     values = pack_values(proj.colors, build_features(g, cam), feature_count)
@@ -589,10 +617,10 @@ def k3_phase(ctx: dict) -> dict:
 
 
 def kernel_phases(cell: str, g, cam, chunk: int, cap: int,
-                  feature_count: int) -> dict:
+                  feature_count: int, bin_kw: dict | None = None) -> dict:
     """K1, K2 and K3 against their plain versions on one view of a cell;
     returns each kernel's report by launch-counter name."""
-    k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count)
+    k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count, bin_kw=bin_kw)
     print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
     k2 = k2_phase(ctx)
     print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
@@ -1559,6 +1587,511 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
             {"sp-render": render_launches, "sp-grad": grad_launches})
 
 
+# The train-opaque-cut cell: train-full's scene at bench_train.py's opaque
+# preset (bench_train.py:87-104: log-scale log 0.02, opacity 0.9), the
+# converged-opacity operating point the termination cut was designed for.
+# Its trainer runs geometry steps CUT_FROM + 1 .. CUT_FROM + CUT_STEPS, across
+# the 100-iteration boundary where the split caps are resized.
+CUT_SCALE, CUT_OPACITY = 0.02, 0.9
+CUT_FROM, CUT_STEPS, CUT_TIMED = 95, 10, 10
+
+
+def cut_trainer(train_dir: Path, dev):
+    """A term_cut Trainer on the train scene at the opaque preset, its caps
+    presized from a probe of every view (bench_train.py:107-130): the
+    instance cap at 1.1x the worst view's UNCUT aligned demand (what a
+    trainer without the cut holds), the expand cap at 1.1x its instance
+    count; returns (trainer, probe)."""
+    import dataclasses
+
+    import torch
+
+    from gs2m_tpu_torch.core.config import (ModelConfig, OptimConfig,
+                                            PipelineConfig)
+    from gs2m_tpu_torch.data.scene import Scene
+    from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.train.trainer import Trainer
+
+    model = ModelConfig(source_path=str(train_dir), resolution=1)
+    opt = OptimConfig(geometry_from_iter=0, multi_view_max_angle=179.0,
+                      multi_view_max_dist=100.0, nearby_cam_max_angle=179.0,
+                      nearby_cam_max_dist=100.0)
+    pipe = PipelineConfig(term_cut=True)
+    tr = Trainer(model, pipe, opt, Scene(model, opt, device=dev))
+    logit = float(np.log(CUT_OPACITY / (1 - CUT_OPACITY)))
+    g = tr.gaussians
+    tr.gaussians = dataclasses.replace(
+        g, scaling=torch.full_like(g.scaling, float(np.log(CUT_SCALE))),
+        opacity=torch.full_like(g.opacity, logit))
+    tr.active_sh_degree = tr.gaussians.max_sh_degree
+    g = tr.gaussians
+    op = g.get_opacity[:, 0]
+    H, W = TRAIN_H, TRAIN_W
+    gy, gx = num_tiles(H, W, pipe.tile)
+    probe = {"instances": 0, "aligned": 0, "aligned_cut": 0}
+    with torch.no_grad():
+        for cam in tr.scene.train_cameras:
+            proj = project(g, cam, g.max_sh_degree, op)
+            total = int(proj.tiles_touched.sum())
+            big = -(-(total + gy * gx * pipe.chunk) // 2 ** 17) * 2 ** 17
+            base = bin_gaussians(proj, H, W, pipe.tile, big, pipe.chunk, op)
+            cut = bin_gaussians(proj, H, W, pipe.tile, big, pipe.chunk, op,
+                                with_present=False, term_cut=True,
+                                expand_cap=big)
+            if int(base.dropped) or int(cut.dropped):
+                fail("train-opaque-cut probe dropped instances")
+            probe["instances"] = max(probe["instances"], total)
+            probe["aligned"] = max(probe["aligned"], int(base.num_aligned))
+            probe["aligned_cut"] = max(probe["aligned_cut"],
+                                       int(cut.num_aligned))
+
+    def round17(n):
+        return max(-(-int(n * 1.1) // 2 ** 17) * 2 ** 17, 2 ** 17)
+
+    tr.instance_cap = round17(probe["aligned"])
+    tr.expand_cap = max(round17(probe["instances"]), tr.instance_cap)
+    tr._steps.clear()
+    tr._observe_counter = None
+    tr.iteration = CUT_FROM
+    return tr, probe
+
+
+def cut_bin_cost(proj, op, cap: int, chunk: int, **kw) -> tuple:
+    """(ms, peak MiB above the allocation before the call) of one
+    bin_gaussians call on view 0: CUDA events, median of 20."""
+    import torch
+
+    from gs2m_tpu_torch.ops.binning import bin_gaussians
+
+    def call():
+        return bin_gaussians(proj, TRAIN_H, TRAIN_W, 16, cap, chunk, op, **kw)
+
+    ms = time_ms(call, 20)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return ms, (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+
+
+def cut_layout_phase(tr, base_cap: int, card: str) -> dict:
+    """On view 0: the cut and base layouts (instances, aligned slots, the
+    cut's share), the cut's own ms and peak memory (the binning with and
+    without the cut at the same caps), then the blend on both layouts
+    through the wrappers: K1's image, final T and observe counts bit-equal,
+    K2's per-Gaussian gradients at the check_grads gate (bit-equality
+    printed), K3's counts equal; then each kernel against its plain version
+    on the cut layout (kernel_phases). Returns the kernel reports."""
+    import torch
+
+    from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.ops.binning import bin_gaussians
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
+    from gs2m_tpu_torch.utils.grad_gate import DEFAULT_TOL, TOLERANCES, grad_gate
+
+    g, cam, chunk = tr.gaussians, tr.scene.train_cameras[0], tr.pipe.chunk
+    H, W = cam.height, cam.width
+    cut_kw = dict(with_present=False, term_cut=True, expand_cap=tr.expand_cap)
+    with torch.no_grad():
+        op = g.get_opacity[:, 0]
+        proj = project(g, cam, g.max_sh_degree, op)
+        base = bin_gaussians(proj, H, W, 16, base_cap, chunk, op)
+        cut = bin_gaussians(proj, H, W, 16, tr.instance_cap, chunk, op,
+                            **cut_kw)
+        if int(base.dropped) or int(cut.dropped):
+            fail(f"train-opaque-cut view 0 dropped: base {int(base.dropped)}, "
+                 f"cut {int(cut.dropped)}")
+        # The cut's own cost: both binnings at the same caps, so that only
+        # the cut's passes differ.
+        same = max(base_cap, tr.expand_cap)
+        base_ms, base_mib = cut_bin_cost(proj, op, same, chunk)
+        same_ms, same_mib = cut_bin_cost(proj, op, same, chunk,
+                                         with_present=False, term_cut=True,
+                                         expand_cap=same)
+        cut_ms, cut_mib = cut_bin_cost(proj, op, tr.instance_cap, chunk,
+                                       **cut_kw)
+    n_base, n_cut = int(base.num_aligned), int(cut.num_aligned)
+    print(f"[smoke] train-opaque-cut view 0: {int(base.num_instances)} "
+          f"instances; aligned slots {n_base} uncut, {n_cut} cut (share cut "
+          f"{1 - n_cut / n_base:.4f}); binning at {same} slots: uncut "
+          f"{base_ms:.3f} ms / peak +{base_mib:.1f} MiB, with the cut "
+          f"{same_ms:.3f} ms / +{same_mib:.1f} MiB (the cut's own "
+          f"{same_ms - base_ms:.3f} ms, +{same_mib - base_mib:.1f} MiB); at "
+          f"the trainer's caps (instance {tr.instance_cap}, expand "
+          f"{tr.expand_cap}) {cut_ms:.3f} ms / +{cut_mib:.1f} MiB; CUDA "
+          f"events, median of 20, on {card}")
+
+    # The blend on both layouts: K1 (forward), K2 (autograd backward), K3.
+    values = pack_values(proj.colors, build_features(g, cam), 5).detach()
+    outs = []
+    for b in (base, cut):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (values, proj.means2d, proj.conics, op)]
+        o = blend.blend_tiles(*leaves, b, H, W, 16, chunk)
+        w = torch.linspace(-1, 1, o.image.numel(), device=o.image.device)
+        loss = (o.image * w.reshape(o.image.shape)).sum() + o.final_T.sum()
+        grads = torch.autograd.grad(loss, leaves)
+        obs = blend.observe_tiles(proj.means2d, proj.conics, op, b, H, W, 16,
+                                  chunk)
+        outs.append((o, grads, obs))
+    (o0, g0, obs0), (o1, g1, obs1) = outs
+    k1_equal = {k: bool(torch.equal(getattr(o1, k), getattr(o0, k)))
+                for k in ("image", "final_T", "observe")}
+    gates, bit_equal = {}, {}
+    for name, a, b in zip(("values", "means2d", "conics", "opacity"), g1, g0):
+        rep = grad_gate(a.cpu().numpy(), b.cpu().numpy(),
+                        TOLERANCES.get(name, DEFAULT_TOL))
+        gates[name] = {k: rep[k] for k in ("p999", "rel_to_max", "pass")}
+        bit_equal[name] = bool(torch.equal(a, b))
+    k3_equal = bool(torch.equal(obs1, obs0))
+    print(f"[smoke] train-opaque-cut blend, cut vs base layout on view 0: "
+          f"K1 bit-equal {k1_equal}; K2 per-Gaussian gradients gate {gates}, "
+          f"bit-equal {bit_equal}; K3 counts equal {k3_equal}")
+    if not all(k1_equal.values()):
+        fail(f"K1 on the cut layout is not bit-equal to the base: {k1_equal}")
+    if not all(v["pass"] for v in gates.values()):
+        fail(f"K2 on the cut layout fails the gradient gate: {gates}")
+    if not k3_equal:
+        fail("K3 counts on the cut layout differ from the base layout's")
+    del outs, o0, o1, g0, g1
+    return kernel_phases("train-opaque-cut", g, cam, chunk, tr.instance_cap,
+                         5, bin_kw=cut_kw)
+
+
+def cut_step_turns(tr, base_cap: int, card: str) -> None:
+    """CUT_TIMED geometry steps with the cut against as many without it,
+    from one state, in turns (uncut, cut, cut, uncut; CUDA events per step,
+    median over each kind's steps), a profile of one step of each (busy ms,
+    idle share, launches), and, printed but not gated, the first step's
+    loss and per-Gaussian gradients cut against uncut."""
+    import torch
+
+    from gs2m_tpu_torch.train.trainer import make_train_step, make_view_objective
+    from gs2m_tpu_torch.utils.grad_gate import DEFAULT_TOL, TOLERANCES, grad_gate
+
+    args = (tr.model_cfg, tr.pipe, tr.opt, tr.scene)
+    kinds = {"uncut": (base_cap, {}),
+             "cut": (tr.instance_cap, dict(term_cut=True,
+                                           expand_cap=tr.expand_cap))}
+    views = [tr.choose_views(False)[:3] for _ in range(CUT_TIMED)]
+    snap = snapshot(tr)
+
+    # The first step's loss and gradients, cut against uncut (not gated).
+    first = {}
+    for kind, (cap, kw) in kinds.items():
+        restore(tr, snap)
+        objective = make_view_objective(*args, cap, True, **kw)
+        g = tr.gaussians
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in g.params_dict().items()}
+        sinks = [g.xyz.new_zeros(g.capacity, 2, requires_grad=True)
+                 for _ in range(2)]
+        loss, _ = objective(g, params, *sinks, *views[0], tr.active_sh_degree,
+                            tr.generator)
+        grads = torch.autograd.grad(loss, list(params.values()) + sinks,
+                                    allow_unused=True)
+        first[kind] = (loss.detach(),
+                       dict(zip(list(params) + ["sink", "abs_sink"], grads)))
+    (lu, gu), (lc, gc) = first["uncut"], first["cut"]
+    rel = abs(float(lc) - float(lu)) / max(abs(float(lu)), 1e-30)
+    report = {}
+    for name, a in gc.items():
+        b = gu[name]
+        if a is not None and b is not None:
+            rep = grad_gate(a.cpu().numpy(), b.cpu().numpy(),
+                            TOLERANCES.get(name, DEFAULT_TOL))
+            report[name] = (rep["pass"], bool(torch.equal(a, b)))
+    print(f"[smoke] train-opaque-cut first step, cut vs uncut (not gated): "
+          f"loss {float(lc)!r} vs {float(lu)!r} (rel {rel:.3g}, within 1e-6: "
+          f"{rel <= 1e-6}); gradients (gate pass, bit-equal) {report}")
+    del first, gu, gc
+
+    steps = {kind: make_train_step(*args, cap, True, **kw)
+             for kind, (cap, kw) in kinds.items()}
+
+    def one(kind, i):
+        view, nearest, has = views[i]
+        (tr.gaussians, tr.opt_state, tr.stats, _) = steps[kind](
+            tr.gaussians, tr.opt_state, tr.stats, view, nearest, has,
+            CUT_FROM + 1 + i, tr.active_sh_degree, tr.generator)
+
+    times = {"uncut": [], "cut": []}
+    torch.cuda.reset_peak_memory_stats()
+    for kind in ("uncut", "cut", "cut", "uncut"):
+        restore(tr, snap)
+        for i in range(CUT_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            one(kind, i)
+            b.record()
+            times[kind].append((a, b))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: float(np.median([a.elapsed_time(b) for a, b in v]))
+           for k, v in times.items()}
+    print(f"[smoke] train-opaque-cut steps in turns (uncut, cut, cut, uncut; "
+          f"{CUT_TIMED} steps each from one state): uncut {med['uncut']:.2f} "
+          f"ms/step (cap {base_cap}), cut {med['cut']:.2f} ms/step (caps "
+          f"{tr.instance_cap} / {tr.expand_cap}), median of {2 * CUT_TIMED}, "
+          f"CUDA events; peak memory {peak:.2f} GiB on {card}")
+    for kind in ("uncut", "cut"):
+        restore(tr, snap)
+        profile_call(f"train-opaque-cut {kind} step",
+                     lambda: one(kind, 0), med[kind])
+    restore(tr, snap)
+
+
+def cut_path(train_dir: Path, card: str, dev):
+    """The train-opaque-cut cell: the trainer's cut steps across the
+    100-iteration boundary and the trim's counter on the cut layout (the
+    path whose launches are counted), then the view-0 layouts and kernels
+    and the step timing. Returns (kernel reports, launches)."""
+    import torch
+
+    from gs2m_tpu_torch.ops import blend
+    from gs2m_tpu_torch.train.trainer import make_observe_counter
+
+    t0 = time.perf_counter()
+    tr, probe = cut_trainer(train_dir, dev)
+    base_cap, expand_cap = tr.instance_cap, tr.expand_cap
+    print(f"[smoke] train-opaque-cut probe over {TRAIN_VIEWS} views: worst "
+          f"{probe['instances']} instances, aligned {probe['aligned']} uncut "
+          f"and {probe['aligned_cut']} cut -> instance_cap {base_cap}, "
+          f"expand_cap {expand_cap} ({time.perf_counter() - t0:.1f} s)")
+
+    blend.LAUNCHES.clear()
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    caps = []
+    for _ in range(CUT_STEPS):
+        m = tr.train_step()
+        dropped = torch.maximum(dropped, m["dropped"])
+        caps.append((tr.iteration, tr.instance_cap, tr.expand_cap))
+    counts, trim_drop = make_observe_counter(
+        tr.scene, tr.pipe, tr.instance_cap, term_cut=True,
+        expand_cap=tr.expand_cap)(tr.gaussians)
+    torch.cuda.synchronize()
+    launches = blend.launch_counts()
+    want = {"blend_fwd": 2 * CUT_STEPS, "blend_bwd": 2 * CUT_STEPS,
+            "blend_obs": TRAIN_VIEWS}
+    print(f"[smoke] train-opaque-cut trainer: iterations {CUT_FROM + 1}.."
+          f"{tr.iteration} with the cut, caps (iteration, instance, expand) "
+          f"{caps}; last loss {float(m['loss']):.5f}, dropped {int(dropped)}, "
+          f"aligned demand {int(m['aligned_demand'])}; the trim's counter on "
+          f"the cut layout: dropped {int(trim_drop)}, "
+          f"{int((counts >= 2).sum())} Gaussians seen in >= 2 views; launches "
+          f"{launches} (expected {want})")
+    if not np.isfinite(float(m["loss"])) or int(dropped) or int(trim_drop):
+        fail("train-opaque-cut: non-finite loss or dropped instances")
+    if not tr.instance_cap < base_cap or tr.expand_cap != expand_cap:
+        fail(f"train-opaque-cut: instance_cap {base_cap} -> "
+             f"{tr.instance_cap} (must shrink at iteration 100), expand_cap "
+             f"{expand_cap} -> {tr.expand_cap}")
+    if launches != want:
+        fail(f"train-opaque-cut launches {launches}, expected {want}")
+
+    reports = cut_layout_phase(tr, base_cap, card)
+    cut_step_turns(tr, base_cap, card)
+    return reports, launches
+
+
+def lpips_weights(path: Path, seed: int) -> None:
+    """Synthetic VGG16 + linear-head weights in the torchvision / LPIPS
+    layout (tests/test_lpips.py's recipe: conv weights N(0, 0.05), zero
+    biases, heads U(0, 1)), written as npz."""
+    rng = np.random.default_rng(seed)
+    w, cin = {}, 3
+    for idx, cout in {0: 64, 2: 64, 5: 128, 7: 128, 10: 256, 12: 256,
+                      14: 256, 17: 512, 19: 512, 21: 512, 24: 512, 26: 512,
+                      28: 512}.items():
+        w[f"features.{idx}.weight"] = rng.normal(
+            scale=0.05, size=(cout, cin, 3, 3)).astype(np.float32)
+        w[f"features.{idx}.bias"] = np.zeros(cout, np.float32)
+        cin = cout
+    for i, c in enumerate([64, 128, 256, 512, 512]):
+        w[f"lin{i}.model.1.weight"] = rng.uniform(0, 1, c).astype(np.float32)
+    np.savez(path, **w)
+
+
+def lpips_path(root: Path, model_dir: Path, card: str, seed: int) -> None:
+    """LPIPS on the card (utils/lpips.py) with synthetic weights: two
+    800x600 images, the card's value within rtol 1e-4 of the CPU's, ms per
+    image pair; then the metrics app on the render-full model with
+    GS2M_LPIPS_WEIGHTS set, whose LPIPS column must not be null."""
+    import torch
+
+    from gs2m_tpu_torch.apps import metrics as metrics_app
+    from gs2m_tpu_torch.utils.lpips import lpips
+
+    path = root / "lpips_weights.npz"
+    lpips_weights(path, seed)
+    rng = np.random.default_rng(seed + 1)
+    a = rng.uniform(0, 1, (3, TRAIN_H, TRAIN_W)).astype(np.float32)
+    b = np.clip(a + rng.normal(scale=0.1, size=a.shape), 0, 1).astype(np.float32)
+    card_val = float(lpips(a, b, str(path), "cuda"))
+    ms = time_ms(lambda: lpips(a, b, str(path), "cuda"), 10)
+    t0 = time.perf_counter()
+    cpu_val = float(lpips(a, b, str(path), "cpu"))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(card_val - cpu_val) / abs(cpu_val)
+    print(f"[smoke] LPIPS (synthetic weights) at {TRAIN_W}x{TRAIN_H}: card "
+          f"{card_val!r}, CPU {cpu_val!r} (rel {rel:.3g}, limit 1e-4); "
+          f"{ms:.2f} ms per image pair on the card (median of 10, CUDA "
+          f"events; the CPU took {cpu_s:.1f} s) on {card}")
+    if not (np.isfinite(card_val) and rel <= 1e-4):
+        fail("LPIPS on the card differs from the CPU's")
+    old = os.environ.get("GS2M_LPIPS_WEIGHTS")
+    os.environ["GS2M_LPIPS_WEIGHTS"] = str(path)
+    try:
+        t0 = time.perf_counter()
+        res = metrics_app.main(["-m", str(model_dir)])
+    finally:
+        if old is None:
+            del os.environ["GS2M_LPIPS_WEIGHTS"]
+        else:
+            os.environ["GS2M_LPIPS_WEIGHTS"] = old
+    print(f"[smoke] metrics app with GS2M_LPIPS_WEIGHTS on the render-full "
+          f"model ({VIEWS} views at {WIDTH}x{HEIGHT}): {json.dumps(res)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    vals = [r.get("LPIPS") for r in res.values()]
+    if not vals or not all(v is not None and np.isfinite(v) for v in vals):
+        fail(f"metrics app: LPIPS column {vals}")
+    torch.cuda.empty_cache()
+
+
+def viewer_path(trainer, card: str, requests: int = 5) -> None:
+    """The SIBR bridge (apps/network_gui.py) over a loopback socket at
+    800x600 with train-full's Gaussians: a client thread sends view 0's
+    camera `requests` times; each reply's bytes within 1 LSB of render()'s
+    image for the same camera, K1 launched once per request, ms per
+    request."""
+    import socket
+    import threading
+
+    import torch
+
+    from gs2m_tpu_torch.apps.network_gui import NetworkGUI, serve_render
+    from gs2m_tpu_torch.models.render import render
+    from gs2m_tpu_torch.ops import blend
+
+    g, cam = trainer.gaussians, trainer.scene.train_cameras[0]
+    W, H = cam.width, cam.height
+    wv = cam.world_view.cpu().numpy().copy()
+    fp = cam.full_proj.cpu().numpy().copy()
+    wv[:, 1] *= -1
+    wv[:, 2] *= -1
+    fp[:, 1] *= -1
+    fovx = 2 * np.arctan(float(cam.tanfovx))
+    fovy = 2 * np.arctan(float(cam.tanfovy))
+    msg = json.dumps({
+        "resolution_x": W, "resolution_y": H, "train": True,
+        "fov_x": fovx, "fov_y": fovy, "z_near": cam.znear,
+        "z_far": cam.zfar, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": True, "scaling_modifier": 1.0,
+        "view_matrix": wv.reshape(-1).tolist(),
+        "view_projection_matrix": fp.reshape(-1).tolist()}).encode()
+    gui = NetworkGUI(port=0)
+    port = gui.listener.getsockname()[1]
+    replies = []
+
+    def client():
+        s = socket.create_connection(("127.0.0.1", port))
+        for _ in range(requests):
+            s.sendall(len(msg).to_bytes(4, "little") + msg)
+            img = b""
+            while len(img) < W * H * 3:
+                img += s.recv(W * H * 3 - len(img))
+            n = int.from_bytes(s.recv(4), "little")
+            replies.append((np.frombuffer(img, np.uint8).reshape(H, W, 3),
+                            s.recv(n).decode("ascii")))
+        s.close()
+
+    t = threading.Thread(target=client)
+    t.start()
+    n0 = blend.LAUNCHES["blend_fwd", 8]
+    served, ms = 0, []
+    deadline = time.perf_counter() + 60
+    while served < requests and time.perf_counter() < deadline:
+        t0 = time.perf_counter()
+        out = serve_render(gui, g, "viewer-smoke", chunk=trainer.pipe.chunk,
+                           instance_cap=trainer.instance_cap)
+        if out is None:
+            if gui.conn is None:
+                time.sleep(0.01)
+            continue
+        ms.append((time.perf_counter() - t0) * 1e3)
+        served += 1
+    t.join(timeout=30)
+    gui.listener.close()
+    launched = blend.LAUNCHES["blend_fwd", 8] - n0
+    with torch.no_grad():
+        pkg = render(g, cam, torch.zeros(3, device=g.device),
+                     g.max_sh_degree, chunk=trainer.pipe.chunk,
+                     instance_cap=trainer.instance_cap)
+    ref = (np.clip(pkg["render"].cpu().numpy(), 0, 1).transpose(1, 2, 0)
+           * 255).astype(np.uint8)
+    lsb = max((int(np.abs(img.astype(np.int32) - ref).max())
+               for img, _ in replies), default=None)
+    print(f"[smoke] viewer bridge at {W}x{H}, {g.num_alive} Gaussians: "
+          f"{len(replies)} of {requests} requests answered, max "
+          f"{lsb} LSB from render()'s image, verify "
+          f"{sorted({v for _, v in replies})}, K1 launched {launched}; ms per "
+          f"request (host clock, render + transfer) "
+          f"{[round(x, 2) for x in ms]} on {card}")
+    if (len(replies) != requests or lsb is None or lsb > 1
+            or launched != requests or int(pkg["dropped"])
+            or any(v != "viewer-smoke" for _, v in replies)):
+        fail("viewer bridge: replies, bytes or launches wrong")
+
+
+def composite_path(out: Path, card: str) -> dict:
+    """The quality gate on the composite scene (sphere + box + ground
+    plane) at smoke scale: test PSNR, chamfer against the analytic surface
+    and the mesh's stage times (the render app's own record). Fails only on
+    a non-finite score or an empty mesh: the JAX package has no composite
+    reference number."""
+    from gs2m_tpu_torch.apps import quality_gate
+    from gs2m_tpu_torch.apps import render as render_app
+
+    meshes = []
+    saved = render_app.main
+
+    def render_main(argv=None):
+        res = saved(argv)
+        meshes.append(res["meshes"].get("train"))
+        return res
+
+    render_app.main = render_main
+    t0 = time.perf_counter()
+    try:
+        q = quality_gate.main(["--out", str(out), "--production", "--smoke",
+                               "--scene", "composite"])
+    finally:
+        render_app.main = saved
+    wall = time.perf_counter() - t0
+    test = next(iter(q["metrics_test"].values()), {})
+    mesh = meshes[-1] if meshes else None
+    stages = mesh["stage_ms"] if mesh else {}
+    total = sum(stages.values())
+    print(f"[smoke] composite gate (smoke scale, {wall:.1f} s): "
+          f"{json.dumps(q)} on {card}")
+    print(f"[smoke] composite gate: test PSNR {test.get('PSNR')}, SSIM "
+          f"{test.get('SSIM')}, chamfer {q['chamfer']['chamfer_mean']}; mesh "
+          f"{mesh and mesh['faces']} faces; stage ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f", total {total:.1f}; the host cluster's share "
+          f"{stages.get('cluster', 0.0) / max(total, 1e-9):.3f}")
+    numbers = [*q["chamfer"].values(), test.get("PSNR"), test.get("SSIM")]
+    if not all(x is not None and np.isfinite(x) for x in numbers):
+        fail(f"composite gate: non-finite or missing numbers {numbers}")
+    if mesh is None or not mesh["faces"] or q["scene"] != "synthetic_composite":
+        fail(f"composite gate: empty mesh or wrong scene ({q['scene']})")
+    return q
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1817,7 +2350,13 @@ def main(argv=None) -> None:
         "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
         trainer.pipe.chunk, trainer.instance_cap, 5)
 
+    # --- phase 6a: the viewer bridge with train-full's Gaussians -----------
+    viewer_path(trainer, card)
     del trainer
+
+    # --- phase 6c: the binning termination cut (train-opaque-cut) ----------
+    cut_kernels, cut_launches = cut_path(train_dir, card, dev)
+    torch.cuda.empty_cache()
 
     # --- phase 6b: two data-parallel ranks of the train app (dp-train) -----
     dp_kernels, dp_launches = dp_path(root, train_dir, card, dev, geo_ms)
@@ -1839,6 +2378,12 @@ def main(argv=None) -> None:
     # --- phase 9: the material gate at smoke scale ---------------------------
     material_gate_path(root / "material_gate", card)
 
+    # --- phase 10: LPIPS on the card, the metrics app's LPIPS column --------
+    lpips_path(root, model_dir, card, args.seed)
+
+    # --- phase 11: the quality gate on the composite scene at smoke scale ---
+    composite_path(root / "composite", card)
+
     # One record per kernel and path, each from the kernel phase run at that
     # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
     # quality cell are checked above, but their paths do not launch them
@@ -1849,6 +2394,7 @@ def main(argv=None) -> None:
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
+            ("train-opaque-cut", cut_kernels, cut_launches),
             ("render-full", {"blend_fwd": render_kernels["blend_fwd"]},
              launches),
             ("quality-smoke", {k: quality_kernels[k]

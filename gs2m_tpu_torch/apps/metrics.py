@@ -3,11 +3,13 @@
 Port of gs2m_tpu/apps/metrics.py: walks <model>/<split>/<label_iter>/
 {render,gt}, averages per-image PSNR (utils.images.psnr) and SSIM (the
 training loss's 11x11 Gaussian window, ops.ssim.fused_ssim, on the device)
-and writes per_view.json beside each method's maps and
-metrics_<split>.json in the model directory. LPIPS needs pretrained VGG
-weights, which the repo does not ship, so it is reported as null (ROADMAP.md
-Queue A, 'Remaining surface'). A split with no renders is an empty result,
-not an error. Runs on CUDA (default) or, when asked, on the CPU.
+and LPIPS (utils/lpips.py) and writes per_view.json beside each method's
+maps and metrics_<split>.json in the model directory. LPIPS needs
+pretrained VGG weights, which the repo does not ship and nothing
+downloads: it is computed when GS2M_LPIPS_WEIGHTS names a weights file and
+reported as null otherwise, as in the JAX package. A split with no renders
+is an empty result, not an error. Runs on CUDA (default) or, when asked,
+on the CPU.
 
 Usage: python -m gs2m_tpu_torch.apps.metrics -m <model_dir> [--split test]
 """
@@ -27,11 +29,17 @@ def evaluate_dir(method_dir: Path, device: torch.device) -> dict:
 
     from gs2m_tpu_torch.ops.ssim import fused_ssim
     from gs2m_tpu_torch.utils.images import psnr
+    from gs2m_tpu_torch.utils.lpips import lpips, weights_file
+
+    try:
+        lpips_weights = weights_file()
+    except FileNotFoundError:
+        lpips_weights = None  # no pretrained weights: LPIPS stays null
 
     render_dir = method_dir / "render"
     gt_dir = method_dir / "gt"
     names = sorted(p.name for p in render_dir.iterdir() if p.suffix == ".png")
-    psnrs, ssims = [], []
+    psnrs, ssims, lpipss = [], [], []
     for name in names:
         r = np.asarray(Image.open(render_dir / name), np.float32)[..., :3] / 255.0
         g = np.asarray(Image.open(gt_dir / name), np.float32)[..., :3] / 255.0
@@ -40,10 +48,14 @@ def evaluate_dir(method_dir: Path, device: torch.device) -> dict:
             ssims.append(float(fused_ssim(
                 torch.from_numpy(r.transpose(2, 0, 1).copy())[None].to(device),
                 torch.from_numpy(g.transpose(2, 0, 1).copy())[None].to(device))))
+        if lpips_weights is not None:
+            lpipss.append(float(lpips(r.transpose(2, 0, 1),
+                                      g.transpose(2, 0, 1), lpips_weights,
+                                      device)))
     return {
         "PSNR": float(np.mean(psnrs)) if psnrs else None,
         "SSIM": float(np.mean(ssims)) if ssims else None,
-        "LPIPS": None,
+        "LPIPS": float(np.mean(lpipss)) if lpipss else None,
         "per_view": {n: {"PSNR": p, "SSIM": s}
                      for n, p, s in zip(names, psnrs, ssims)},
     }

@@ -9,8 +9,10 @@ with --start_checkpoint) and a torch.profiler trace (--profile_iterations
 START STOP: opened before iteration START and closed after iteration STOP,
 as the JAX package's window, written under <model>/profile/). --material
 trains the material stage (from geometry_from_iter on) against a learned
-cubemap light and writes lighting.pkl with each snapshot. Runs on CUDA
-(default) or, when asked, on the CPU.
+cubemap light and writes lighting.pkl with each snapshot. --term_cut bins
+the geometry stage's renders and the trim with the termination cut and
+split instance caps (train/trainer.py); the run's last line prints both
+caps. Runs on CUDA (default) or, when asked, on the CPU.
 
 --data_parallel trains one view per rank of a torch.distributed group per
 step (parallel/dp.py), joined from torchrun's environment; a plain launch
@@ -348,7 +350,9 @@ def train(args, model_cfg, pipe, opt, device, proc=None):
         with open(os.path.join(model_cfg.model_path, "runtime.json"),
                   "w") as f:
             json.dump({"minutes": wall_min, "iterations": opt.iterations}, f)
-    say(f"[>] Training complete in {wall_min:.1f} min")
+    say(f"[>] Training complete in {wall_min:.1f} min; instance cap "
+        f"{trainer.instance_cap}, expand cap {trainer.expand_cap}"
+        + ("" if trainer._term_cut else " (no termination cut)"))
     reporter.close()
     return trainer
 

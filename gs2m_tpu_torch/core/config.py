@@ -3,9 +3,10 @@
 Port of gs2m_tpu/core/config.py: the same three groups with the same flag
 names, defaults and shorthands, so the port reads a `cfg_args.json` written
 by the JAX trainer (and the JAX apps read one written here). The pipeline
-group keeps the JAX package's blend knobs (chunk, use_pallas, compact_bwd,
-term_cut) for file compatibility; the port's render path reads `tile`,
-`chunk` and `instance_cap_mult`.
+group keeps the JAX package's blend knobs for file compatibility; the
+port's render path reads `tile`, `chunk` and `instance_cap_mult`, and its
+trainer `term_cut` (the binning termination cut with split instance caps,
+train/trainer.py). `use_pallas` and `compact_bwd` have no effect here.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ class PipelineConfig:
     instance_cap_mult: float = 4.0      # instance buffer ~ mult * capacity
     use_pallas: bool = True
     compact_bwd: bool = True
-    term_cut: bool = False
+    term_cut: bool = False              # binning termination cut (trainer)
 
 
 @dataclass

@@ -117,7 +117,8 @@ class _Bands:
                     buffer=op.new_zeros(10, h, cam.width),
                     final_T=op.new_zeros(h, cam.width), radii=proj.radii,
                     observe=torch.zeros_like(proj.radii), dropped=zero,
-                    num_instances=zero))
+                    num_instances=zero, dropped_expand=zero,
+                    aligned_demand=zero))
                 continue
             projc = crop_projected(proj, d * h, rows, tile)
             local_cam = dataclasses.replace(cam, height=rows)
@@ -151,7 +152,9 @@ class _Bands:
             radii=torch.stack([o.radii.to(dev0) for o in outs]).amax(0),
             observe=sum(o.observe.to(dev0) for o in outs),
             dropped=sum(o.dropped.to(dev0) for o in outs),
-            num_instances=sum(o.num_instances.to(dev0) for o in outs))
+            num_instances=sum(o.num_instances.to(dev0) for o in outs),
+            dropped_expand=sum(o.dropped_expand.to(dev0) for o in outs),
+            aligned_demand=sum(o.aligned_demand.to(dev0) for o in outs))
 
 
 def make_sp_render(devices, n_bands: int, height: int, *,

@@ -17,7 +17,17 @@ into one pair core (blend_pallas.py:712-936), the port takes that
 package's own non-pair branch: two render() calls. Its backward compaction
 (`compact_bwd`) has no counterpart: K2 skips chunks whose tile had
 terminated. The flag stays in PipelineConfig for cfg_args.json
-compatibility and has no effect here, like `term_cut` and `use_pallas`.
+compatibility and has no effect here, like `use_pallas`.
+
+Termination cut (`pipe.term_cut`, off under data parallelism as in the
+JAX package): the geometry stage's main and nearest renders and the trim's
+observe counter bin with the cut (ops/binning.py), an exact cut, so the
+loss and gradients are those of the uncut renders. The caps split:
+`expand_cap` covers the expansion and sort before the cut, `instance_cap`
+only the aligned layout after it. At each 100-iteration boundary the
+trainer grows `expand_cap` on expansion-side overflow, grows
+`instance_cap` on the aligned part of the overflow, and otherwise shrinks
+`instance_cap` toward the window's aligned demand (1.3x headroom).
 
 Data parallelism (parallel/dp.py): with `data_parallel`, each rank of a
 torch.distributed group trains on its own view of a D-view batch per
@@ -74,9 +84,13 @@ def choose_neighbor(rng: np.random.Generator, table_row: np.ndarray,
 def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                         opt: OptimConfig, scene: Scene, instance_cap: int,
                         geometry_stage: bool, material_stage: bool = False,
-                        pbr_fns: dict | None = None):
+                        pbr_fns: dict | None = None, term_cut: bool = False,
+                        expand_cap: int | None = None):
     """The per-view staged loss as a function of the parameters (and, in
-    the material stage, of the light)."""
+    the material stage, of the light). With `term_cut`, the geometry
+    stage's main and nearest renders bin with the termination cut, the
+    renders the JAX package sends through its pair path; the warmup render
+    and the material losses' own renders do not."""
     if material_stage and pbr_fns is None:
         raise ValueError("the material stage needs pbr_fns "
                          "(pbr.render.make_pbr_fns)")
@@ -84,6 +98,7 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
     render_kw = dict(tile=pipe.tile, chunk=pipe.chunk,
                      instance_cap=instance_cap, z_depth=pipe.z_depth,
                      blend_metallic=model_cfg.metallic)
+    cut_kw = dict(render_kw, term_cut=term_cut, expand_cap=expand_cap)
 
     def view_objective(gaussians: Gaussians, params: dict, sink, abs_sink,
                        view_idx: int, nearest_idx: int, has_nearest: bool,
@@ -101,7 +116,8 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                          geometry_stage=geometry_stage,
                          material_stage=material_stage,
                          sobel_normal=geometry_stage, m2d_sink=sink,
-                         m2d_abs_sink=abs_sink, **render_kw)
+                         m2d_abs_sink=abs_sink,
+                         **(cut_kw if geometry_stage else render_kw))
 
         rgb = L.clip(pkg["render"], 0.0, 1.0)
         Lrgb = L.rgb_loss(rgb, gt, opt.lambda_ssim)
@@ -115,13 +131,20 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
 
         Lgeo = gt.new_zeros(())
         dropped = pkg["dropped"]
+        # The split caps' signals come from the geometry stage's renders
+        # (the JAX package's pair path); 0 elsewhere.
+        dropped_expand = aligned_demand = torch.zeros_like(dropped)
         if geometry_stage:
             nearest_cam = scene.train_cameras[nearest_idx]
             with record_function("step/render"):
                 npkg = render(g, nearest_cam, bg, active_sh_degree,
                               geometry_stage=True,
-                              material_stage=material_stage, **render_kw)
+                              material_stage=material_stage, **cut_kw)
             dropped = torch.maximum(dropped, npkg["dropped"])
+            dropped_expand = torch.maximum(pkg["dropped_expand"],
+                                           npkg["dropped_expand"])
+            aligned_demand = torch.maximum(pkg["aligned_demand"],
+                                           npkg["aligned_demand"])
             Ldn = L.depth_normal_loss(pkg["normal_map"], pkg["sobel_map"], gt)
             Lgeo = opt.lambda_depth_normal * Ldn
             if has_nearest and opt.lambda_multi_view != 0.0:
@@ -145,7 +168,9 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
 
         aux = {"Lrgb": Lrgb, "Lgeo": Lgeo, "Lmat": Lmat, "radii": pkg["radii"],
                "observe": pkg["observe"],
-               "visibility": pkg["visibility_filter"], "dropped": dropped}
+               "visibility": pkg["visibility_filter"], "dropped": dropped,
+               "dropped_expand": dropped_expand,
+               "aligned_demand": aligned_demand}
         return loss, aux
 
     return view_objective
@@ -154,7 +179,8 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
 def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
                     opt: OptimConfig, scene: Scene, instance_cap: int,
                     geometry_stage: bool, material_stage: bool = False,
-                    pbr_fns: dict | None = None, reduce=None):
+                    pbr_fns: dict | None = None, reduce=None,
+                    term_cut: bool = False, expand_cap: int | None = None):
     """The step of one stage: loss, gradients, densification statistics and
     the in-place Adam update; in the material stage also the light's Adam
     step (at opacity_lr, then clamped to >= 0), in place on `light` and
@@ -163,12 +189,14 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
     metrics) to the data-parallel batch's before the update. Its stages are
     profiler ranges ("step/forward", "step/render", "step/pbr",
     "step/backward", "step/reduce", "step/update", "step/light"), which
-    apps/train.py::step_stages reads."""
+    apps/train.py::step_stages reads. `term_cut` / `expand_cap`: see
+    make_view_objective."""
     xyz_lr_fn = xyz_lr_schedule(opt, scene.cameras_extent)
     H = scene.train_cameras[0].height
     W = scene.train_cameras[0].width
     objective = make_view_objective(model_cfg, pipe, opt, scene, instance_cap,
-                                    geometry_stage, material_stage, pbr_fns)
+                                    geometry_stage, material_stage, pbr_fns,
+                                    term_cut, expand_cap)
 
     def step(gaussians: Gaussians, opt_state: AdamState, stats: D.DensifyStats,
              view_idx: int, nearest_idx: int, has_nearest: bool,
@@ -201,6 +229,8 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
         metrics = {"loss": loss.detach(), "Lrgb": aux["Lrgb"].detach(),
                    "Lgeo": aux["Lgeo"].detach(), "Lmat": aux["Lmat"].detach(),
                    "dropped": aux["dropped"],
+                   "dropped_expand": aux["dropped_expand"],
+                   "aligned_demand": aux["aligned_demand"],
                    "mv_active": int(geometry_stage and has_nearest),
                    "rough_active": int(material_stage and has_nearby)}
         with record_function("step/update"):
@@ -225,11 +255,13 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
 
 
 def make_observe_counter(scene: Scene, pipe: PipelineConfig,
-                         instance_cap: int):
+                         instance_cap: int, term_cut: bool = False,
+                         expand_cap: int | None = None):
     """Count, per Gaussian, in how many train views it is observed (the
     trim prunes those seen in < 2 views), with the max binning overflow
     across views — the counts are trustworthy only when it is zero. Rides
-    the observe-only pass (count_observed, kernel K3)."""
+    the observe-only pass (count_observed, kernel K3), on the cut layout
+    with `term_cut` (the counts are the same)."""
 
     def count(gaussians: Gaussians, active_sh_degree: int = 0):
         del active_sh_degree  # observe counts are color-free
@@ -239,7 +271,9 @@ def make_observe_counter(scene: Scene, pipe: PipelineConfig,
         for cam in scene.train_cameras:
             observe, dropped = count_observed(gaussians, cam, tile=pipe.tile,
                                               chunk=pipe.chunk,
-                                              instance_cap=instance_cap)
+                                              instance_cap=instance_cap,
+                                              term_cut=term_cut,
+                                              expand_cap=expand_cap)
             counts += (observe > 0).to(torch.int32)
             drop = torch.maximum(drop, dropped)
         return counts, drop
@@ -311,6 +345,19 @@ class Trainer:
         # on the device (no sync per step).
         self._dropped_window = torch.zeros((), dtype=torch.int32,
                                            device=self.device)
+        # Termination cut: the JAX package's rule, which leaves it off under
+        # data parallelism. Split caps: expand_cap for the expansion and
+        # sort before the cut, instance_cap for the aligned layout after
+        # it, each grown on its own overflow; the windows are the running
+        # maxima of the aligned demand and of the expansion-side overflow.
+        self._term_cut = pipe.term_cut and not data_parallel
+        if pipe.term_cut and data_parallel:
+            print("[trainer] term_cut is off under data parallelism (the JAX "
+                  "package's rule)", flush=True)
+        self.expand_cap: int | None = (self.instance_cap if self._term_cut
+                                       else None)
+        self._aligned_window = torch.zeros_like(self._dropped_window)
+        self._expand_drop_window = torch.zeros_like(self._dropped_window)
         # Steps where the multi-view / roughness terms fired: host ints, or
         # device counts under data parallelism (read by the properties).
         self._mv_active = 0
@@ -348,7 +395,7 @@ class Trainer:
 
     def _get_step(self, geometry_stage: bool, material_stage: bool = False):
         key = (geometry_stage, material_stage, self.gaussians.capacity,
-               self.instance_cap)
+               self.instance_cap, self.expand_cap)
         if key not in self._steps:
             if self.data_parallel:
                 from gs2m_tpu_torch.parallel.dp import make_dp_train_step
@@ -360,7 +407,8 @@ class Trainer:
                 self._steps[key] = make_train_step(
                     self.model_cfg, self.pipe, self.opt, self.scene,
                     self.instance_cap, geometry_stage, material_stage,
-                    self.pbr_fns)
+                    self.pbr_fns, term_cut=self._term_cut,
+                    expand_cap=self.expand_cap)
         return self._steps[key]
 
     @property
@@ -439,11 +487,18 @@ class Trainer:
         # window max catches drop bursts between the boundary checks too.
         self._dropped_window = torch.maximum(self._dropped_window,
                                              metrics["dropped"])
+        if self._term_cut:
+            self._aligned_window = torch.maximum(self._aligned_window,
+                                                 metrics["aligned_demand"])
+            self._expand_drop_window = torch.maximum(
+                self._expand_drop_window, metrics["dropped_expand"])
         self._mv_active = self._mv_active + metrics["mv_active"]
         self._rough_active = self._rough_active + metrics["rough_active"]
         if it % 100 == 0:
             dw = int(self._dropped_window)
-            if dw > 0:
+            if self._term_cut:
+                self._resize_split_caps(dw)
+            elif dw > 0:
                 self._grow_instance_cap(dropped=dw)
             self._dropped_window = torch.zeros_like(self._dropped_window)
 
@@ -472,7 +527,8 @@ class Trainer:
             t0 = time.perf_counter()
             if self._observe_counter is None:
                 self._observe_counter = make_observe_counter(
-                    self.scene, self.pipe, self.instance_cap)
+                    self.scene, self.pipe, self.instance_cap,
+                    term_cut=self._term_cut, expand_cap=self.expand_cap)
             counts, drop = self._observe_counter(self.gaussians,
                                                  self.active_sh_degree)
             drop = int(drop)
@@ -496,6 +552,43 @@ class Trainer:
                     and it == opt.densify_from_iter):
                 self.gaussians, self.opt_state = D.reset_opacity(
                     self.gaussians, self.opt_state, cap=0.01)
+
+    def _resize_split_caps(self, dropped: int):
+        """The 100-iteration boundary under the termination cut: grow
+        expand_cap by the expansion-side overflow (+15%, in 2^17 steps, up
+        to MAX_INSTANCE_CAP); grow instance_cap by the aligned part of
+        `dropped`; else shrink instance_cap to 1.3x the window's aligned
+        demand when that is under 3/4 of it. Resets both windows."""
+        de = int(self._expand_drop_window)
+        if de > 0:
+            want = int((self.expand_cap + de) * 1.15)
+            self.expand_cap = min(-(-want // 2 ** 17) * 2 ** 17,
+                                  self.MAX_INSTANCE_CAP)
+            self._steps.clear()
+            self._observe_counter = None
+        da = max(dropped - de, 0)
+        if da > 0:
+            self._grow_instance_cap(dropped=da)
+        else:
+            aw = int(self._aligned_window)
+            if aw > 0:
+                want = self._round_aligned_cap(int(aw * 1.3))
+                if want < self.instance_cap * 3 // 4:
+                    self.instance_cap = max(want, 4 * self.pipe.chunk)
+                    self._steps.clear()
+                    self._observe_counter = None
+        self._expand_drop_window = torch.zeros_like(self._expand_drop_window)
+        self._aligned_window = torch.zeros_like(self._aligned_window)
+
+    def _round_aligned_cap(self, want: int) -> int:
+        """An aligned-slot demand rounded up to a chunk multiple, then to
+        2^17 slots (64 chunks below an instance cap of 2^20), at least four
+        chunks and at most the current instance cap (the JAX package's
+        _round_bwd_cap, which sizes this cap there too)."""
+        c = self.pipe.chunk
+        gran = 2 ** 17 if self.instance_cap >= 2 ** 20 else 64 * c
+        want = -(-want // c) * c
+        return int(min(max(-(-want // gran) * gran, 4 * c), self.instance_cap))
 
     def _grow_instance_cap(self, dropped: int | None = None):
         """Resize the instance buffer after overflow: to demand + 15% (in
@@ -574,10 +667,11 @@ class Trainer:
     def save_checkpoint(self, path: str):
         """Pickle the whole training state as numpy arrays and Python
         scalars: the JAX package's version-2 top-level keys (expand_cap
-        None: the port has no term_cut; the light and its Adam state None
+        None without the termination cut; the light and its Adam state None
         without the material stage) plus the state that decides the
         next steps, so a resumed run repeats the uninterrupted one: the host
-        rng, the device generators, the view pool and the drop window.
+        rng, the device generators, the view pool, the drop window and the
+        split caps' two windows.
         Under data parallelism every rank must call it (the ranks' own
         rng, per-view generator and view pool are gathered into "ranks");
         rank 0 writes the file."""
@@ -594,7 +688,7 @@ class Trainer:
             "active_sh_degree": self.active_sh_degree,
             "capacity": g.capacity,
             "instance_cap": self.instance_cap,
-            "expand_cap": None,
+            "expand_cap": self.expand_cap,
             "gaussians": gaussians,
             "opt_state": {"mu": {k: host(v) for k, v in self.opt_state.mu.items()},
                           "nu": {k: host(v) for k, v in self.opt_state.nu.items()},
@@ -611,6 +705,8 @@ class Trainer:
             "rough_active_count": self.rough_active_count,
             "replica_generator": host(self.replica_generator.get_state()),
             "dropped_window": int(self._dropped_window),
+            "aligned_window": int(self._aligned_window),
+            "expand_drop_window": int(self._expand_drop_window),
         }
         local = {"rng": self.rng.bit_generator.state,
                  "generator": host(self.generator.get_state()),
@@ -662,6 +758,14 @@ class Trainer:
         self.iteration = int(state["iteration"])
         self.active_sh_degree = int(state["active_sh_degree"])
         self.instance_cap = int(state["instance_cap"])
+        # A checkpoint without expand_cap (written without the cut) starts
+        # it at the restored instance cap, grown again on demand: the JAX
+        # package's fallback.
+        if self._term_cut:
+            self.expand_cap = (int(state["expand_cap"])
+                               if state.get("expand_cap") is not None
+                               else max(self.expand_cap or 0,
+                                        self.instance_cap))
         self.mv_active_count = int(state["mv_active_count"])
         self.rough_active_count = int(state.get("rough_active_count", 0))
         if state.get("light_state") is not None:
@@ -687,6 +791,10 @@ class Trainer:
             state.get("replica_generator", state["generator"])))
         self._dropped_window = torch.tensor(state["dropped_window"],
                                             dtype=torch.int32, device=dev)
+        self._aligned_window = torch.tensor(state.get("aligned_window", 0),
+                                            dtype=torch.int32, device=dev)
+        self._expand_drop_window = torch.tensor(
+            state.get("expand_drop_window", 0), dtype=torch.int32, device=dev)
         # Restored state invalidates the steps built for the old shapes.
         self._steps.clear()
         self._observe_counter = None

@@ -10,7 +10,10 @@ path (TSDF fusion, marching tetrahedra) on the card against the CPU; and
 the training step's properties on the card: no host sync per step and
 bit-equal reruns, in the geometry and the material stage; and the
 parallel paths on the card: a 4-band render against the full frame and
-the one-rank data-parallel step against the single-view step.
+the one-rank data-parallel step against the single-view step; and the
+binning termination cut on the card: its layout equal to the CPU's, K1 on
+the cut layout bit-equal to K1 on the base layout (K2's gradients at the
+gate), and cut train steps that never sync with the host.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -324,8 +327,69 @@ def test_render_backward_on_card_matches_cpu(cuda, stage):
         assert rep["pass"], (k, rep)
 
 
+def opaque_scene(device):
+    """tests/test_pallas.py::test_pair_term_cut_exact's dense opaque scene
+    at 160x120: 3,000 Gaussians uniform in a box, scale 0.25, opacity 0.9,
+    where the cut fires."""
+    params, alive, sh = scene(11, 3000, msd=0.0625, opacity=float(np.log(9.0)),
+                              aniso=0.0)
+    rng = np.random.default_rng(23)
+    params["xyz"] = np.stack([rng.uniform(-1.2, 1.2, 3000),
+                              rng.uniform(-0.9, 0.9, 3000),
+                              rng.uniform(-0.6, 0.6, 3000)], -1).astype(np.float32)
+    g = Gaussians.from_numpy(params, alive, sh, device=device)
+    cam = camera(160, 120, device)
+    op = g.get_opacity[:, 0]
+    return g, cam, op, project(g, cam, 2, op)
+
+
+def test_term_cut_binning_on_card_equals_cpu(cuda):
+    """The termination cut's layout on the card equals the CPU's, field for
+    field, and the cut fires."""
+    g, cam, op, proj = opaque_scene("cpu")
+    kw = dict(with_present=False, term_cut=True, expand_cap=2 ** 17)
+    ref = bin_gaussians(proj, 120, 160, 16, 2 ** 15, 64, op, **kw)
+    got = bin_gaussians(type(proj)(*[x.to(cuda) for x in proj]), 120, 160, 16,
+                        2 ** 15, 64, op.to(cuda), **kw)
+    for name, a, b in zip(ref._fields, ref, got):
+        assert torch.equal(b.cpu(), a), name
+    base = bin_gaussians(proj, 120, 160, 16, 2 ** 17, 64, op)
+    assert int(ref.num_aligned) < int(base.num_aligned)
+    assert int(ref.dropped) == 0
+
+
+def test_k1_on_cut_layout_bit_equal_to_base(cuda):
+    """The blend on the card (K1, and K2 through autograd) on the cut layout
+    against the base layout: image, final T and observe counts bit-equal;
+    the per-Gaussian gradients at the check_grads gate."""
+    g, cam, op, proj = opaque_scene(cuda)
+    values = pack_values(proj.colors, build_features(g, cam), 5)
+    base = bin_gaussians(proj, 120, 160, 16, 2 ** 17, 64, op)
+    cut = bin_gaussians(proj, 120, 160, 16, 2 ** 15, 64, op,
+                        with_present=False, term_cut=True, expand_cap=2 ** 17)
+    assert int(cut.num_aligned) < int(base.num_aligned)
+    outs = []
+    for b in (base, cut):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (values, proj.means2d, proj.conics, op)]
+        n0 = blend.LAUNCHES["blend_fwd", 8]
+        o = blend.blend_tiles(*leaves, b, 120, 160, 16, 64)
+        assert blend.LAUNCHES["blend_fwd", 8] == n0 + 1
+        w = torch.linspace(-1, 1, o.image.numel(), device=cuda)
+        loss = (o.image * w.reshape(o.image.shape)).sum() + o.final_T.sum()
+        outs.append((o, torch.autograd.grad(loss, leaves)))
+    (o0, g0), (o1, g1) = outs
+    assert torch.equal(o1.image, o0.image)
+    assert torch.equal(o1.final_T, o0.final_T)
+    assert torch.equal(o1.observe, o0.observe)
+    for name, a, b in zip(("values", "means2d", "conics", "opacity"), g1, g0):
+        rep = grad_gate(a.cpu().numpy(), b.cpu().numpy(),
+                        TOLERANCES.get(name, DEFAULT_TOL))
+        assert rep["pass"], (name, rep)
+
+
 def small_trainer(device, tmp_path, material: bool, geometry_from: int = 2,
-                  iterations: int = 30_000):
+                  iterations: int = 30_000, term_cut: bool = False):
     """A Trainer on chip_smoke's train-scene layout at 96x64 (3,000 points,
     4 views, widened neighbor thresholds); with `material` the material
     stage from geometry_from on, against a 64-texel light."""
@@ -342,8 +406,25 @@ def small_trainer(device, tmp_path, material: bool, geometry_from: int = 2,
                       nearby_cam_max_angle=179.0, nearby_cam_max_dist=100.0,
                       multi_view_sample_num=2000)
     fns = make_pbr_fns(base_res=64, device=device) if material else None
-    return Trainer(model, PipelineConfig(chunk=64), opt,
+    return Trainer(model, PipelineConfig(chunk=64, term_cut=term_cut), opt,
                    Scene(model, opt, device=device), pbr_fns=fns)
+
+
+def test_term_cut_steps_do_not_sync_with_the_host(cuda, tmp_path):
+    """Geometry steps with the termination cut (its credit pass, the int64
+    prefix sums, the prefix enforcement) never wait for the card."""
+    trainer = small_trainer(cuda, tmp_path, False, term_cut=True)
+    for _ in range(3):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            metrics = trainer.train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trainer._term_cut and bool(torch.isfinite(metrics["loss"]))
+    assert int(metrics["aligned_demand"]) > 0 and int(metrics["dropped"]) == 0
 
 
 @pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])

@@ -44,7 +44,9 @@ def test_port_has_its_modules():
                 "ops/gather", "pbr/__init__", "pbr/cubemap", "pbr/shade",
                 "pbr/bsdf", "pbr/render", "apps/material_gate",
                 # parallelism
-                "parallel/__init__", "parallel/dp", "parallel/sp"):
+                "parallel/__init__", "parallel/dp", "parallel/sp",
+                # the last surface: LPIPS and the viewer bridge
+                "utils/lpips", "apps/network_gui"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 
