@@ -124,9 +124,57 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 PSNR, chamfer against the analytic surface and the mesh's
                 stage times; fails only on a non-finite score or an empty
                 mesh (no reference number exists)
+  tnt-protocol  convert_json, then the TnT runner (run_tnt) on the
+                composite scene laid out as Barn at the composite smoke's
+                scale (8 views, 240x180 trained at 120x90, 600 iterations),
+                normalized into the unit sphere, with the official kit
+                under a known similarity (the GT cloud, 1M points; the
+                COLMAP log in a second frame and its trans file; the crop):
+                F, P, R at tau 0.01, the recovered transform against the
+                known one, the evaluator's stage seconds; the trajectory
+                alignment alone held to the known similarity (1e-6), and
+                the evaluator run once more on the analytic surface as the
+                reconstruction, its transform held to the known one; then
+                K1 and K2 at the model's shapes and the train app's final
+                instance cap. Every runner path runs alone, one after the
+                other, so its walls and stage seconds share the host with
+                nothing
+  dtu-protocol  the DTU runner as a user runs it (python -m
+                gs2m_tpu_torch.apps.run_dtu, its apps in processes of their
+                own): the composite scene laid out as DTU scan 24 (49 views
+                at 1600x1200, trained at -r 2 = 800x600, 40k points) in
+                DTU's normalized frame (the world scaled into the unit
+                sphere), 600 iterations (geometry and the multi-view loss
+                from 300), render --dtu, train metrics, runtime.json; then
+                eval_dtu against a synthetic official directory (a 1M-point
+                STL, ObsMask, Plane in the scene's frame) at a density
+                scaled to the scene (0.002 = DTU's 0.2 mm x 0.01),
+                report_dtu, the evaluator's stage seconds and point counts,
+                what DTU's own 0.2 density does in this frame (the ball
+                query's neighbor count) and which parts the cleaned mesh
+                lost; walls by app, launches by app (each process logs its
+                launches: ops/blend.py LAUNCH_LOG_ENV); then K1 and K2
+                against their plain versions at the trained model's shapes
+                and the train app's final instance cap
+  turntable     vis_turntable on the dtu-protocol model (--map render) and
+                on its cleaned mesh (--mesh, one surfel per face), 60 frames
+                at 512 with the script's fixed instance caps: ms per frame,
+                dropped per frame, K1 launches (one per frame), peak memory;
+                frame 0 of each through K1 against the same frame through
+                K1's plain version at K1's gate; K1 at frame 0's shapes
+                (the fixed cap, its overflow kept)
+  shiny-protocol the Shiny Blender runner (run_shiny) on the material
+                smoke's glossy sphere laid out as `ball` (RGBA images,
+                transforms_*.json, --mask_gt), 600 iterations with the
+                material stage from 300: test metrics, the PBR outputs, K1
+                and K2 launched at V=16; then K1 and K2 at V=16 at the
+                model's shapes and the train app's final instance cap
 
 Launch counts are zeroed just before each path and read just after; every
-kernel of a path must have launched, as often as its schedule implies.
+kernel of a path must have launched, as often as its schedule implies (on
+the runners' paths, whose apps run in processes of their own, each app that
+launches a kernel must have launched it; each process appends its counts
+to a fresh file, read after the runner exits).
 Prints the card's name and power limit, the smoke's total wall time, then
 one JSON line of kernel records (one per kernel and path, from that path's
 kernel phase), and as the last line {"ok": true, "device": {...}}. Any
@@ -383,12 +431,15 @@ def k2_probe(defines: tuple, args, kw):
 
 
 def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
-                 band: tuple | None = None, bin_kw: dict | None = None):
+                 band: tuple | None = None, bin_kw: dict | None = None,
+                 drop_ok: bool = False):
     """K1 against its plain version on the binning of one view, with the
     value width (V) that `feature_count` gives; with `band` (y0, rows), on
     that band's binning as parallel/sp.py renders it; `bin_kw` is passed to
-    bin_gaussians (the termination cut's layout). Returns (report, context)
-    where the context carries the binning and K1's outputs to K2 and K3."""
+    bin_gaussians (the termination cut's layout); `drop_ok` keeps a binning
+    that overflowed `cap` (a path that never regrows its cap). Returns
+    (report, context) where the context carries the binning and K1's
+    outputs to K2 and K3."""
     import torch
 
     from gs2m_tpu_torch.ops import blend
@@ -407,7 +458,7 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
     grid_y, grid_x = num_tiles(H, W, 16)
     T = grid_y * grid_x
     binning = bin_gaussians(proj, H, W, 16, cap, chunk, op, **(bin_kw or {}))
-    if int(binning.dropped) != 0:
+    if int(binning.dropped) != 0 and not drop_ok:
         fail(f"kernel phase binning dropped {int(binning.dropped)}")
     values = pack_values(proj.colors, build_features(g, cam), feature_count)
     geom, vals = gather_instances(values, proj.means2d, proj.conics, op,
@@ -422,7 +473,8 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
     torch.cuda.synchronize()
 
     report = {"V": vals.shape[0], "instances": int(binning.num_instances),
-              "aligned": int(binning.num_aligned), "n_chunks": cap // chunk}
+              "aligned": int(binning.num_aligned), "n_chunks": cap // chunk,
+              "dropped": int(binning.dropped)}
     max_err = 0.0
     problems = []
     for name in ("img", "fT", "clogT"):
@@ -2092,6 +2144,764 @@ def composite_path(out: Path, card: str) -> dict:
     return q
 
 
+# --- the benchmark harness paths (apps/run_*.py, eval_*, vis_turntable) ----
+# The dtu-protocol cell: the composite scene laid out as DTU scan 24 (49
+# views at 1600x1200, which run_dtu's fixed -r 2 trains at DTU's 800x600;
+# 40k points as in the production gate) in DTU's normalized frame: the
+# world scaled by UNIT_NORM so the scene's farthest visible point (a ground
+# corner, at 2.32) lies on the unit sphere (the images do not change). Cut
+# from 30k to 600 iterations with the geometry stage (and the multi-view
+# loss) from 300 and densification from 100 to 500; the trim (K3, every
+# 1,000 iterations) stays covered by train-full. A 1M-point STL.
+DTU_SCAN, DTU_VIEWS, DTU_W, DTU_H, DTU_POINTS = 24, 49, 1600, 1200, 40_000
+UNIT_NORM = 1.0 / 2.3173
+DTU_ITERS = 600
+DTU_EXTRA = ("--geometry_from_iter", "300", "--densify_from_iter", "100",
+             "--densify_until_iter", "500", "--quiet")
+DTU_STL_POINTS = 1_000_000
+# DTU scores in millimetres at a 0.2 mm sample density, a 60 mm patch and
+# a 20 mm clip; in the normalized frame the --dtu preset meshes in, one
+# unit is ~100 mm of a DTU object (the unit sphere spans a ~200 mm scan),
+# so the scaled evaluation runs at 1/100 of those.
+DTU_EVAL_SCALE = 0.01
+# The tnt-protocol cell: the composite scene at the composite smoke's scale
+# (8 views, 1,500 points, 600 iterations; built at 240x180 for run_tnt's
+# fixed -r 2 to train at 120x90) named Barn (the --tnt preset's 360-degree
+# depth 3.0 and the toolbox's tau 0.01), normalized into the unit sphere as
+# the dtu-protocol scene is (at the ring's 3.4 the preset's depth would
+# stop short of the objects), the GT cloud (1M points) under a known
+# similarity.
+TNT_VIEWS, TNT_W, TNT_H, TNT_POINTS, TNT_ITERS = 8, 240, 180, 1_500, 600
+TNT_EXTRA = ("--geometry_from_iter", "200", "--densify_from_iter", "100",
+             "--densify_until_iter", "500", "--opacity_reset_interval", "400",
+             "--chunk", "64", "--quiet")
+TNT_GT_POINTS = 1_000_000
+# The evaluator's own checks: the trajectory alignment alone must give the
+# known similarity to rounding (ALIGN_TOL; arccos resolves ~1e-6 degrees),
+# and the whole evaluation on the analytic surface as the reconstruction
+# (TNT_WITNESS_POINTS, another seed) must land within WITNESS_TOL of it
+# (the two samplings keep ICP from exact: 6e-6, 4e-4 degrees, 5e-6 on the
+# CPU). Limits on |scale ratio - 1|, degrees of rotation and translation
+# (GT units; the GT scene spans ~3).
+TNT_WITNESS_POINTS = 500_000
+ALIGN_TOL = {"scale": 1e-6, "rotation_deg": 1e-4, "translation": 1e-6}
+WITNESS_TOL = {"scale": 1e-4, "rotation_deg": 1e-2, "translation": 1e-4}
+# The shiny-protocol cell: the material smoke's glossy sphere (160x120, 12
+# views, 3,000 points, 600 iterations) as the Shiny Blender scene `ball`
+# (--mask_gt), with the material stage from 300 and the nearby-camera
+# distance widened as the material smoke widens it.
+SHINY_VIEWS, SHINY_W, SHINY_H, SHINY_POINTS = 12, 160, 120, 3_000
+SHINY_EXTRA = ("--iterations", "600", "--geometry_from_iter", "300",
+               "--opacity_reset_interval", "400", "--nearby_cam_max_dist",
+               "3.5", "--quiet")
+APP_TIMEOUT = 900
+
+
+def start_app(module: str, argv: list, log: Path, launch_log: Path) -> dict:
+    """Start `python -m gs2m_tpu_torch.apps.<module> argv` as a user runs
+    it: its output to `log` (each line with its arrival second, read by a
+    thread), every process it starts appending its kernel launches to
+    `launch_log` (ops/blend.py LAUNCH_LOG_ENV). finish_app waits for it."""
+    import threading
+
+    from gs2m_tpu_torch.ops.blend import LAUNCH_LOG_ENV
+
+    cmd = [sys.executable, "-m", f"gs2m_tpu_torch.apps.{module}", *argv]
+    env = dict(os.environ, PYTHONPATH=str(HERE),
+               **{LAUNCH_LOG_ENV: str(launch_log)})
+    job = {"module": module, "lines": [], "t0": time.perf_counter()}
+    f = open(log, "a")
+    try:
+        f.write("$ " + " ".join(cmd) + "\n")
+        f.flush()
+        job["proc"] = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)
+    except BaseException:
+        f.close()
+        raise
+
+    def read():
+        with f:
+            for line in job["proc"].stdout:
+                job["lines"].append((time.perf_counter() - job["t0"],
+                                     line.rstrip("\n")))
+                f.write(line)
+        job["t_end"] = time.perf_counter()   # the output closed: it exited
+
+    job["reader"] = threading.Thread(target=read, daemon=True)
+    job["reader"].start()
+    return job
+
+
+def finish_app(job: dict) -> tuple:
+    """Wait for a started app (at most APP_TIMEOUT from its start); ->
+    (wall s, its output lines with their arrival seconds). Fails on a
+    nonzero exit or the timeout."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=max(APP_TIMEOUT - (time.perf_counter() - job["t0"]),
+                              1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    job["reader"].join(timeout=60)
+    wall = job.get("t_end", time.perf_counter()) - job["t0"]
+    if proc.returncode != 0:
+        tail = "\n".join(text for _, text in job["lines"][-40:])
+        fail(f"{job['module']} exited with {proc.returncode}:\n{tail}")
+    return wall, job["lines"]
+
+
+def run_app(module: str, argv: list, log: Path, launch_log: Path) -> tuple:
+    """start_app then finish_app: -> (wall s, output lines)."""
+    return finish_app(start_app(module, argv, log, launch_log))
+
+
+def app_walls(lines: list, wall: float) -> dict:
+    """A runner's wall per launched app: from the runner's `[>] <python> -m
+    gs2m_tpu_torch.apps.<app>` line to the next such line (the last app to
+    the runner's exit)."""
+    marks = [(t, text.split(" -m ")[1].split()[0].rsplit(".", 1)[1])
+             for t, text in lines
+             if text.startswith("[>] ") and " -m gs2m_tpu_torch.apps." in text]
+    ends = [t for t, _ in marks[1:]] + [wall]
+    walls: dict = {}
+    for (t, app), end in zip(marks, ends):
+        walls[app] = walls.get(app, 0.0) + end - t
+    return walls
+
+
+def launch_log(path: Path) -> tuple:
+    """-> (launch counts by kernel over every logged process, by (kernel, V),
+    by app: the module each process ran)."""
+    from collections import Counter
+
+    by_kernel, by_width, by_app = Counter(), Counter(), {}
+    if path.exists():
+        for line in path.read_text().splitlines():
+            rec = json.loads(line)
+            app = Path(rec["argv"][0]).stem
+            counts = by_app.setdefault(app, Counter())
+            for name, V, n in rec["launches"]:
+                by_kernel[name] += n
+                by_width[name, V] += n
+                counts[name] += n
+    out = dict.fromkeys(("blend_fwd", "blend_bwd", "blend_obs"), 0)
+    out.update(by_kernel)
+    return out, dict(by_width), {k: dict(v) for k, v in by_app.items()}
+
+
+def stage_line(lines: list, prefix: str) -> dict:
+    """The JSON an app printed after `prefix` (its last such line)."""
+    found = [text.split(prefix, 1)[1] for _, text in lines if prefix in text]
+    if not found:
+        fail(f"no '{prefix}' line in the output")
+    return json.loads(found[-1])
+
+
+def train_cap(lines: list) -> int:
+    """The instance cap a runner's train app ended with (its `Training
+    complete ...; instance cap N, ...` line)."""
+    found = [text for _, text in lines
+             if text.startswith("[>] Training complete")
+             and "instance cap " in text]
+    if not found:
+        fail("no 'Training complete ... instance cap' line in the output")
+    return int(found[-1].split("instance cap ")[1].split(",")[0])
+
+
+def model_kernels(cell: str, model_dir: Path, feature_count: int, cap: int,
+                  dev) -> dict:
+    """K1 and K2 against their plain versions at a trained model's shapes:
+    its last snapshot on its scene's first train view, at its training
+    resolution, chunk and `cap`, the instance cap its train app ended
+    with."""
+    from gs2m_tpu_torch.core.config import load_cfg_args
+    from gs2m_tpu_torch.core.gaussians import Gaussians
+    from gs2m_tpu_torch.data.ply import load_gaussian_ply
+    from gs2m_tpu_torch.data.scene import Scene, search_max_iteration
+
+    model_cfg, pipe, _ = load_cfg_args(str(model_dir))
+    it = search_max_iteration(str(model_dir / "point_cloud"))
+    g = Gaussians.from_raw(load_gaussian_ply(str(
+        model_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply")),
+        model_cfg.sh_degree, device=dev)
+    cam = Scene(model_cfg, shuffle=False, load_images=False,
+                device=dev).train_cameras[0]
+    print(f"[smoke] {cell} kernels: {g.capacity} Gaussians at iteration "
+          f"{it}, view 0 at {cam.width}x{cam.height}, chunk {pipe.chunk}, "
+          f"cap {cap}")
+    k1, ctx = kernel_phase(g, cam, pipe.chunk, cap, feature_count)
+    print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
+    k2 = k2_phase(ctx)
+    print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
+    return {"blend_fwd": k1, "blend_bwd": k2}
+
+
+def make_dtu_official(root: Path, scan: int, seed: int, scale: float,
+                      res: float = 0.01) -> Path:
+    """A synthetic DTU `Official_DTU_Dataset` for the composite scene scaled
+    by `scale`, in the scene's frame: Points/stl/stl{scan:03}_total.ply
+    sampled from the analytic visible surface, ObsMask/ObsMask{scan}_10.mat
+    (the cells within two cells of the surface, over its bounding box BB at
+    Res) and ObsMask/Plane{scan}.mat (the ground plane, y down: points with
+    y < ground + 0.01 are above it)."""
+    from scipy.io import savemat
+    from scipy.ndimage import binary_dilation
+
+    from gs2m_tpu_torch.apps.quality_gate import (COMPOSITE,
+                                                  sample_composite_surface)
+    from gs2m_tpu_torch.data.ply import store_point_cloud
+
+    (root / "ObsMask").mkdir(parents=True)
+    (root / "Points" / "stl").mkdir(parents=True)
+    stl = scale * sample_composite_surface(DTU_STL_POINTS, seed=seed + 11
+                                           ).astype(np.float64)
+    lo, hi = stl.min(0) - 0.05, stl.max(0) + 0.05
+    shape = np.ceil((hi - lo) / res).astype(int) + 1
+    mask = np.zeros(shape, bool)
+    mask[tuple(np.around((stl - lo) / res).astype(int).T)] = True
+    mask = binary_dilation(mask, iterations=2)
+    savemat(root / "ObsMask" / f"ObsMask{scan}_10.mat",
+            {"ObsMask": mask, "BB": np.stack([lo, hi]), "Res": res})
+    savemat(root / "ObsMask" / f"Plane{scan}.mat",
+            {"P": np.array([0.0, -1.0, 0.0,
+                            scale * (COMPOSITE["ground_y"] + 0.01)])})
+    store_point_cloud(str(root / "Points" / "stl" / f"stl{scan:03}_total.ply"),
+                      stl.astype(np.float32), np.full((len(stl), 3), 128.0))
+    return root
+
+
+def default_density_probe(mesh_ply: Path, density: float = 0.2,
+                          subset: int = 10_000, seed: int = 0) -> dict:
+    """What DTU's 0.2 mm density does to a mesh in the normalized frame:
+    the mean neighbor count of radius_downsample's ball query on the whole
+    mesh (from 500 seeded query points), the neighbor lists' total
+    entries for the whole mesh, and the seconds and kept points of
+    radius_downsample on a seeded subset of `subset` vertices."""
+    from scipy.spatial import cKDTree
+
+    from gs2m_tpu_torch.apps.eval_dtu import radius_downsample
+    from gs2m_tpu_torch.data.ply import fetch_mesh
+
+    verts = fetch_mesh(str(mesh_ply))[0].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    q = verts[rng.choice(len(verts), min(500, len(verts)), replace=False)]
+    mean_nb = float(cKDTree(verts).query_ball_point(
+        q, r=density, return_length=True, workers=-1).mean())
+    sub = verts[rng.choice(len(verts), min(subset, len(verts)), replace=False)]
+    t0 = time.perf_counter()
+    kept = radius_downsample(sub, density)
+    return {"mesh_points": len(verts), "mean_neighbors": mean_nb,
+            "list_entries": mean_nb * len(verts),
+            "subset": len(sub), "subset_s": time.perf_counter() - t0,
+            "subset_kept": len(kept)}
+
+
+def rescale_colmap(scene_dir: Path, scale: float) -> None:
+    """Scale a COLMAP scene's world by `scale` (camera translations and the
+    SfM points): the images stay valid, the scene shrinks about the
+    origin."""
+    from gs2m_tpu_torch.data import colmap as cm
+
+    sparse = scene_dir / "sparse" / "0"
+    imgs = cm.read_images_binary(str(sparse / "images.bin"))
+    for im in imgs.values():
+        im.tvec = np.asarray(im.tvec) * scale
+    cm.write_images_binary(str(sparse / "images.bin"), imgs)
+    xyz, rgb, _ = cm.read_points3d_binary(str(sparse / "points3D.bin"))
+    cm.write_points3d_binary(str(sparse / "points3D.bin"), xyz * scale,
+                             rgb.astype(np.float64))
+
+
+def stl_coverage(mesh_ply: Path, stl_ply: Path, scale: float,
+                 radius: float) -> dict:
+    """The share of the STL's points of each composite part (sphere, box,
+    ground) with no vertex of the mesh within `radius`: which parts the
+    mesh lost (the --dtu preset keeps one cluster)."""
+    from scipy.spatial import cKDTree
+
+    from gs2m_tpu_torch.apps.quality_gate import COMPOSITE
+    from gs2m_tpu_torch.data.ply import fetch_mesh, fetch_point_cloud
+
+    c = COMPOSITE
+    verts = fetch_mesh(str(mesh_ply))[0]
+    stl = fetch_point_cloud(str(stl_ply))[0].astype(np.float64) / scale
+    d, _ = cKDTree(verts).query(stl * scale, k=1, distance_upper_bound=radius,
+                                workers=-1)
+    q = np.abs(stl - c["box_c"]) - c["box_h"]
+    parts = {
+        "sphere": np.abs(np.linalg.norm(stl - c["sphere_c"], axis=1)
+                         - c["sphere_r"]),
+        "box": np.abs(np.linalg.norm(np.maximum(q, 0), axis=1)
+                      + np.minimum(q.max(1), 0)),
+        "ground": np.abs(stl[:, 1] - c["ground_y"])}
+    which = np.argmin(np.stack(list(parts.values())), 0)
+    return {name: float(np.isinf(d[which == k]).mean())
+            for k, name in enumerate(parts)}
+
+
+def dtu_protocol_path(root: Path, card: str, seed: int) -> dict:
+    """run_dtu on the composite scene laid out as a DTU scan, the chamfer
+    of its --dtu mesh against a synthetic official directory at a density
+    scaled to the scene (the runner's own eval step runs DTU's millimetre
+    density on the normalized-frame mesh: its cost is probed instead),
+    report_dtu; walls per app, the evaluator's stages, launches by app."""
+    from gs2m_tpu_torch.apps.quality_gate import (build_scene,
+                                                  composite_point_scale)
+
+    data, out, official = root / "dtu", root / "dtu_out", root / "dtu_official"
+    log, launches_file = root / "dtu.log", root / "dtu_launches.jsonl"
+    iterations, scale = DTU_ITERS, UNIT_NORM
+    t0 = time.perf_counter()
+    build_scene(str(data / f"scan{DTU_SCAN}"), n_views=DTU_VIEWS,
+                width=DTU_W, height=DTU_H, n_points=DTU_POINTS,
+                opacity_boost=8.0, point_scale=composite_point_scale(DTU_POINTS),
+                texture="noise", sfm_fraction=0.25, instance_cap=2 ** 20,
+                scene="composite", seed=seed)
+    rescale_colmap(data / f"scan{DTU_SCAN}", scale)
+    make_dtu_official(official, DTU_SCAN, seed, scale)
+    print(f"[smoke] dtu-protocol: scan{DTU_SCAN} ({DTU_VIEWS} views at "
+          f"{DTU_W}x{DTU_H}, {DTU_POINTS} composite points, world "
+          f"x{scale:.4f}) and its official directory ({DTU_STL_POINTS} STL "
+          f"points) built in {time.perf_counter() - t0:.1f} s")
+
+    wall, lines = run_app("run_dtu", [
+        "--data", str(data), "--out", str(out), "--scenes", str(DTU_SCAN),
+        "--iterations", str(iterations), "--extra", *DTU_EXTRA], log,
+        launches_file)
+    walls = app_walls(lines, wall)
+    launches, by_width, by_app = launch_log(launches_file)
+    scan = out / f"scan{DTU_SCAN}"
+    mesh = scan / "train" / f"ours_wo-brdf_{iterations}" / "mesh" / "tsdf_post.ply"
+    s = DTU_EVAL_SCALE
+    e_wall, e_lines = run_app("eval_dtu", [
+        "--data", str(mesh), "--scan", str(DTU_SCAN), "--dataset_dir",
+        str(official), "--vis_out_dir", str(scan), "--downsample_density",
+        str(0.2 * s), "--patch_size", str(60 * s), "--max_dist", str(20 * s)],
+        log, launches_file)
+    stages = stage_line(e_lines, "[>] eval_dtu stages: ")
+    probe = default_density_probe(mesh)
+    lost = stl_coverage(mesh, official / "Points" / "stl"
+                        / f"stl{DTU_SCAN:03}_total.ply", scale, 20 * s)
+    r_wall, _ = run_app("report_dtu", ["--out", str(out), "--iterations",
+                                       str(iterations)], log, launches_file)
+    runtime = json.loads((out / "runtime.json").read_text())
+    results = json.loads((scan / "results.json").read_text())
+    metrics = json.loads((scan / "metrics_train.json").read_text())
+    psnr = metrics[f"ours_wo-brdf_{iterations}"]["PSNR"]
+    table = json.loads((out / "chamfer.json").read_text())
+    mesh_lines = [t for _, t in lines if "mesh:" in t]
+    print(f"[smoke] dtu-protocol: run_dtu {wall:.1f} s; walls by app (s) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; eval_dtu {e_wall:.1f} s, report_dtu {r_wall:.1f} s; "
+          f"runtime.json {runtime}; {mesh_lines}")
+    print(f"[smoke] dtu-protocol: chamfer {results} (density "
+          f"{0.2 * s:g}, patch {60 * s:g}, clip {20 * s:g}), train PSNR "
+          f"{psnr}, report mean {table['mean']}; eval_dtu stages "
+          f"{json.dumps(stages)}")
+    print(f"[smoke] dtu-protocol: at DTU's 0.2 density in this frame "
+          f"{json.dumps(probe)}; share of STL points with no mesh vertex "
+          f"within {20 * s:g}, by part: {lost}")
+    print(f"[smoke] dtu-protocol launches {launches} by (kernel, V) "
+          f"{by_width} by app {by_app} on {card}")
+    numbers = [results["mean_d2s"], results["mean_s2d"], results["overall"],
+               psnr]
+    if not all(np.isfinite(x) for x in numbers) or "ours_wo-brdf" not in runtime:
+        fail(f"dtu-protocol: non-finite scores {numbers} or runtime {runtime}")
+    if table[f"scan{DTU_SCAN}"]["overall"] != results["overall"]:
+        fail("dtu-protocol: report_dtu's table disagrees with results.json")
+    # K3 runs at the trim, every 1,000 iterations.
+    want = {"train": ("blend_fwd", "blend_bwd")
+            + (("blend_obs",) if iterations >= 1000 else ()),
+            "render": ("blend_fwd",)}
+    for app, names in want.items():
+        for name in names:
+            if by_app.get(app, {}).get(name, 0) < 1:
+                fail(f"dtu-protocol: {app} launched {name} no time")
+    steps = by_app.get("train", {}).get("blend_fwd", 0)
+    if steps < iterations:
+        fail(f"dtu-protocol: K1 launched {steps} times in {iterations} steps")
+    return {"launches": launches, "model": scan, "mesh": mesh,
+            "cap": train_cap(lines)}
+
+
+def write_tnt_kit(scene_dir: Path, name: str, seed: int,
+                  scale: float) -> np.ndarray:
+    """The TnT evaluation kit for the composite scene scaled by `scale`,
+    under a known similarity S from the scene's frame to the GT frame: <name>.ply (the
+    analytic visible surface), <name>_COLMAP_SfM.log (the cameras' c2w
+    poses, in image order, in a second frame Q), <name>_trans.txt (S Q^-1,
+    the GT alignment of that log) and <name>.json (a Y-axis polygon crop
+    around the scene). Returns S."""
+    from gs2m_tpu_torch.apps.eval_tnt import apply_T, write_trajectory_log
+    from gs2m_tpu_torch.apps.quality_gate import (COMPOSITE,
+                                                  sample_composite_surface)
+    from gs2m_tpu_torch.data import colmap as cm
+    from gs2m_tpu_torch.data.ply import store_point_cloud
+
+    def similarity(scale, angle, t):
+        c, s = np.cos(angle), np.sin(angle)
+        T = np.eye(4)
+        T[:3, :3] = scale * np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T[:3, 3] = t
+        return T
+
+    S = similarity(1.5, 0.4, [2.0, -0.5, 1.0])
+    Q = similarity(0.7, -1.1, [-3.0, 0.25, 4.0])
+    gt = apply_T(scale * sample_composite_surface(TNT_GT_POINTS,
+                                                  seed=seed + 21)
+                 .astype(np.float64), S)
+    store_point_cloud(str(scene_dir / f"{name}.ply"), gt.astype(np.float32),
+                      np.full((len(gt), 3), 128.0))
+    imgs = cm.read_images_binary(str(scene_dir / "sparse/0/images.bin"))
+    poses = []
+    for img in sorted(imgs.values(), key=lambda im: im.name):
+        w2c = np.eye(4)
+        w2c[:3, :3] = cm.qvec_to_rotmat(img.qvec)
+        w2c[:3, 3] = img.tvec
+        c2w = np.linalg.inv(w2c)
+        c2w[:3, :3] = Q[:3, :3] / 0.7 @ c2w[:3, :3]
+        c2w[:3, 3] = apply_T(c2w[None, :3, 3], Q)[0]
+        poses.append(c2w)
+    write_trajectory_log(np.stack(poses), str(scene_dir / f"{name}_COLMAP_SfM.log"))
+    np.savetxt(scene_dir / f"{name}_trans.txt", S @ np.linalg.inv(Q))
+    # The crop: the objects and a margin of ground around them, as the
+    # toolbox's crops bound a scene's region of interest.
+    c = COMPOSITE
+    lo = np.minimum(c["sphere_c"] - c["sphere_r"], c["box_c"] - c["box_h"]) - 0.4
+    hi = np.maximum(c["sphere_c"] + c["sphere_r"], c["box_c"] + c["box_h"]) + 0.4
+    corners = apply_T(scale * np.array([[lo[0], 0, lo[2]], [hi[0], 0, lo[2]],
+                                        [hi[0], 0, hi[2]], [lo[0], 0, hi[2]]]),
+                      S)
+    (scene_dir / f"{name}.json").write_text(json.dumps({
+        "class_name": "SelectionPolygonVolume", "orthogonal_axis": "Y",
+        "axis_min": float(gt[:, 1].min() - 0.1),
+        "axis_max": float(gt[:, 1].max() + 0.1),
+        "bounding_polygon": corners.tolist()}))
+    return S
+
+
+def transform_error(T: np.ndarray, S: np.ndarray) -> dict:
+    """A recovered similarity against the known one: scale ratio, rotation
+    angle (degrees) and translation distance."""
+    sT = np.cbrt(np.linalg.det(T[:3, :3]))
+    sS = np.cbrt(np.linalg.det(S[:3, :3]))
+    ang = None
+    if sT > 0:   # (a collapsed scale leaves no rotation to compare)
+        dR = (T[:3, :3] / sT) @ (S[:3, :3] / sS).T
+        ang = float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2,
+                                                 -1, 1))))
+    return {"scale_ratio": float(sT / sS), "rotation_deg": ang,
+            "translation": float(np.linalg.norm(T[:3, 3] - S[:3, 3]))}
+
+
+def check_transform(label: str, err: dict, tol: dict) -> None:
+    """Fail when a transform_error exceeds its limits."""
+    off = {"scale": abs(err["scale_ratio"] - 1),
+           "rotation_deg": err["rotation_deg"],
+           "translation": err["translation"]}
+    if not all(off[k] is not None and off[k] <= tol[k] for k in tol):
+        fail(f"tnt-protocol: {label} is {err}, off the known similarity "
+             f"beyond {tol}")
+
+
+def tnt_protocol_path(root: Path, card: str, seed: int) -> dict:
+    """The composite scene laid out as TnT's Barn with the official kit
+    under a known similarity, convert_json on it, then run_tnt: F, P, R,
+    the recovered transform against the known similarity, the evaluator's
+    stage seconds, walls and launches by app; the trajectory alignment
+    alone and the evaluator on the analytic surface, each held to the
+    known similarity. (The runner's estimated trajectory is the model's
+    cameras.json, which the render app rewrites in image order, the COLMAP
+    log's.)"""
+    from gs2m_tpu_torch.apps import eval_tnt
+    from gs2m_tpu_torch.apps.quality_gate import (build_scene,
+                                                  composite_point_scale,
+                                                  sample_composite_surface)
+    from gs2m_tpu_torch.data.ply import store_point_cloud
+
+    data, out = root / "tnt", root / "tnt_out"
+    log, launches_file = root / "tnt.log", root / "tnt_launches.jsonl"
+    scene_dir = data / "Barn"
+    t0 = time.perf_counter()
+    build_scene(str(scene_dir), n_views=TNT_VIEWS, width=TNT_W, height=TNT_H,
+                n_points=TNT_POINTS, opacity_boost=8.0,
+                point_scale=composite_point_scale(TNT_POINTS),
+                texture="noise", sfm_fraction=0.25, instance_cap=2 ** 15,
+                scene="composite", seed=seed)
+    rescale_colmap(scene_dir, UNIT_NORM)
+    S = write_tnt_kit(scene_dir, "Barn", seed, UNIT_NORM)
+    print(f"[smoke] tnt-protocol: Barn ({TNT_VIEWS} views at {TNT_W}x{TNT_H}, "
+          f"{TNT_POINTS} composite points, world x{UNIT_NORM:.4f}, a "
+          f"{TNT_GT_POINTS}-point GT cloud) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    c_wall, _ = run_app("convert_json", ["--data_dir", str(scene_dir)], log,
+                        launches_file)
+    wall, lines = run_app("run_tnt", [
+        "--data", str(data), "--out", str(out), "--scenes", "Barn",
+        "--iterations", str(TNT_ITERS), "--extra", *TNT_EXTRA], log,
+        launches_file)
+    walls = app_walls(lines, wall)
+    launches, by_width, by_app = launch_log(launches_file)
+    stages = stage_line(lines, "[>] eval_tnt stages: ")
+    res = json.loads((out / "Barn" / "evaluation" / "evaluation.json")
+                     .read_text())
+    err = transform_error(np.asarray(res["transform"]), S)
+    # The trajectory alignment alone (the evaluator's first step, before
+    # its three ICP stages), from the same files.
+    traj = str(out / "Barn" / "cameras.json")
+    gt_traj = str(scene_dir / "Barn_COLMAP_SfM.log")
+    gt_trans = scene_dir / "Barn_trans.txt"
+    est = eval_tnt.load_trajectory(traj)
+    gt = eval_tnt.apply_T(eval_tnt.load_trajectory(gt_traj)[:, :3, 3],
+                          np.loadtxt(gt_trans))
+    err0 = transform_error(eval_tnt.umeyama_similarity(est[:, :3, 3], gt), S)
+    # The whole evaluation once more, on the analytic surface in the
+    # reconstruction's frame: what the evaluator recovers from a perfect
+    # reconstruction with the same kit and trajectory.
+    witness = root / "tnt_witness"
+    witness.mkdir()
+    surf = UNIT_NORM * sample_composite_surface(TNT_WITNESS_POINTS,
+                                                seed=seed + 31)
+    store_point_cloud(str(witness / "surface.ply"), surf.astype(np.float32),
+                      np.full((len(surf), 3), 128.0))
+    w_stages: dict = {}
+    w_res = eval_tnt.evaluate(
+        str(witness / "surface.ply"), str(scene_dir / "Barn.ply"),
+        eval_tnt.SCENES_TAU["Barn"], crop_json=str(scene_dir / "Barn.json"),
+        out_dir=str(witness), traj=traj, gt_traj=gt_traj,
+        gt_trans=str(gt_trans), stages=w_stages)
+    w_err = transform_error(np.asarray(w_res["transform"]), S)
+    mesh_lines = [t for _, t in lines if "mesh:" in t]
+    print(f"[smoke] tnt-protocol: convert_json {c_wall:.1f} s, run_tnt "
+          f"{wall:.1f} s; walls by app (s) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; transforms.json "
+          f"{json.loads((scene_dir / 'transforms.json').read_text())}; "
+          f"{mesh_lines}")
+    print(f"[smoke] tnt-protocol: F {res['fscore']}, P {res['precision']}, "
+          f"R {res['recall']} at tau {res['tau']} (mean distances "
+          f"{res['mean_d_recon_to_gt']:.5f} / {res['mean_d_gt_to_recon']:.5f})"
+          f"; recovered transform "
+          f"{np.round(np.asarray(res['transform']), 5).tolist()} vs the "
+          f"known similarity: {err} (the trajectory alignment alone: "
+          f"{err0}); eval_tnt stages {json.dumps(stages)}")
+    print(f"[smoke] tnt-protocol: the evaluator on the analytic surface "
+          f"({TNT_WITNESS_POINTS} points) with the same kit: F "
+          f"{w_res['fscore']}, transform vs the known similarity {w_err}; "
+          f"stages {json.dumps(w_stages)}")
+    print(f"[smoke] tnt-protocol launches {launches} by (kernel, V) "
+          f"{by_width} by app {by_app} on {card}")
+    numbers = [res["fscore"], res["precision"], res["recall"]]
+    if not all(np.isfinite(x) for x in numbers):
+        fail(f"tnt-protocol: non-finite scores {numbers}")
+    check_transform("the trajectory alignment", err0, ALIGN_TOL)
+    check_transform("the transform from the analytic surface", w_err,
+                    WITNESS_TOL)
+    for app, names in {"train": ("blend_fwd", "blend_bwd"),
+                       "render": ("blend_fwd",)}.items():
+        for name in names:
+            if by_app.get(app, {}).get(name, 0) < 1:
+                fail(f"tnt-protocol: {app} launched {name} no time")
+    return {"launches": launches, "model": out / "Barn",
+            "cap": train_cap(lines)}
+
+
+def blender_scene(colmap_dir: Path, out_dir: Path, test_every: int = 8) -> None:
+    """A COLMAP scene with masks/ as a Shiny Blender scene: RGBA PNGs
+    (alpha = the mask) under train/ and test/ (every `test_every`-th view
+    held out, as the COLMAP reader's --eval split holds them out), their
+    OpenGL c2w poses in transforms_{train,test}.json, the SfM points as
+    points3d.ply."""
+    from PIL import Image
+
+    from gs2m_tpu_torch.data import colmap as cm
+    from gs2m_tpu_torch.data.ply import store_point_cloud
+
+    sparse = colmap_dir / "sparse" / "0"
+    cam = next(iter(cm.read_cameras_binary(str(sparse / "cameras.bin"))
+                    .values()))
+    fx = float(cam.params[0])
+    frames = {"train": [], "test": []}
+    for i, img in enumerate(sorted(cm.read_images_binary(
+            str(sparse / "images.bin")).values(), key=lambda im: im.name)):
+        split = "test" if i % test_every == 0 else "train"
+        (out_dir / split).mkdir(parents=True, exist_ok=True)
+        rgb = Image.open(colmap_dir / "images" / img.name).convert("RGB")
+        alpha = Image.open(colmap_dir / "masks" / img.name).convert("L")
+        rgb.putalpha(alpha)
+        rgb.save(out_dir / split / f"r_{i}.png")
+        w2c = np.eye(4)
+        w2c[:3, :3] = cm.qvec_to_rotmat(img.qvec)
+        w2c[:3, 3] = img.tvec
+        c2w = np.linalg.inv(w2c)
+        c2w[:3, 1:3] *= -1     # COLMAP (y down, z forward) -> OpenGL
+        frames[split].append({"file_path": f"./{split}/r_{i}",
+                              "transform_matrix": c2w.tolist()})
+    for split, fr in frames.items():
+        (out_dir / f"transforms_{split}.json").write_text(json.dumps({
+            "camera_angle_x": 2 * np.arctan(cam.width / (2 * fx)),
+            "frames": fr}))
+    xyz, rgb, _ = cm.read_points3d_binary(str(sparse / "points3D.bin"))
+    store_point_cloud(str(out_dir / "points3d.ply"), xyz, rgb.astype(np.float64))
+
+
+def shiny_protocol_path(root: Path, card: str, seed: int) -> dict:
+    """run_shiny on the glossy sphere laid out as Shiny Blender's `ball`
+    (--mask_gt): the material stage on its path (K1 and K2 at V=16), the
+    --blender render's PBR outputs, test metrics, launches by app and
+    width."""
+    from gs2m_tpu_torch.apps.material_gate import build_glossy_scene
+
+    data, out = root / "shiny", root / "shiny_out"
+    log, launches_file = root / "shiny.log", root / "shiny_launches.jsonl"
+    t0 = time.perf_counter()
+    colmap_dir = root / "shiny_colmap"
+    build_glossy_scene(str(colmap_dir), n_views=SHINY_VIEWS, width=SHINY_W,
+                       height=SHINY_H, n_points=SHINY_POINTS, seed=seed)
+    blender_scene(colmap_dir, data / "ball")
+    print(f"[smoke] shiny-protocol: ball ({SHINY_VIEWS} views at "
+          f"{SHINY_W}x{SHINY_H}, {SHINY_POINTS} points) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    wall, lines = run_app("run_shiny", [
+        "--data", str(data), "--out", str(out), "--scenes", "ball",
+        "--extra", *SHINY_EXTRA], log, launches_file)
+    walls = app_walls(lines, wall)
+    launches, by_width, by_app = launch_log(launches_file)
+    model = out / "ball"
+    its = int(SHINY_EXTRA[SHINY_EXTRA.index("--iterations") + 1])
+    metrics = json.loads((model / "metrics_test.json").read_text())
+    test = metrics.get(f"ours_{its}", {})
+    method = model / "test" / f"ours_{its}"
+    outputs = {d: len(list((method / d).glob("*.png"))) for d in
+               ("render", "albedo", "roughness", "metallic", "diffuse",
+                "specular")}
+    runtime = json.loads((out / "runtime.json").read_text())
+    print(f"[smoke] shiny-protocol: run_shiny {wall:.1f} s; walls by app (s) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; test PSNR {test.get('PSNR')}, SSIM {test.get('SSIM')}; PBR "
+          f"outputs {outputs}, envmap {(method / 'envmap.png').is_file()}; "
+          f"runtime.json {runtime}")
+    print(f"[smoke] shiny-protocol launches {launches} by (kernel, V) "
+          f"{by_width} by app {by_app} on {card}")
+    if not (test.get("PSNR") is not None and np.isfinite(test["PSNR"])):
+        fail(f"shiny-protocol: no finite test PSNR in {metrics}")
+    if min(outputs.values()) < 1 or "ours" not in runtime:
+        fail(f"shiny-protocol: missing material outputs {outputs} or "
+             f"runtime {runtime}")
+    for name in ("blend_fwd", "blend_bwd"):
+        if by_width.get((name, 16), 0) < 1:
+            fail(f"shiny-protocol: {name} never launched at V=16")
+    return {"launches": launches, "by_width": by_width, "model": model,
+            "cap": train_cap(lines)}
+
+
+def turntable_path(root: Path, model_dir: Path, mesh_ply: Path,
+                   card: str) -> tuple:
+    """vis_turntable on a trained model (--map render) and on its cleaned
+    mesh (--mesh), the script's defaults: ms per frame, each frame's
+    dropped, K1 launches, peak memory; frame 0 of each mode through K1
+    held against the same frame through K1's plain version at K1's gate.
+    Returns (K1 reports by mode, launches by mode)."""
+    import torch
+
+    from gs2m_tpu_torch.apps import vis_turntable as vis
+    from gs2m_tpu_torch.core.gaussians import Gaussians
+    from gs2m_tpu_torch.data.ply import load_gaussian_ply
+    from gs2m_tpu_torch.data.scene import search_max_iteration
+    from gs2m_tpu_torch.ops import blend
+
+    dev = torch.device("cuda")
+    frames, size = 60, 512   # the script's defaults
+    it = search_max_iteration(str(model_dir / "point_cloud"))
+    runs = {"model": ["-m", str(model_dir)],
+            "mesh": ["-m", str(model_dir), "--mesh", str(mesh_ply)]}
+    reports, launches = {}, {}
+    # The app's surfels, kept for the frame-0 check (the app looks
+    # mesh_to_surfels up when it runs).
+    surfels, to_surfels = {}, vis.mesh_to_surfels
+
+    def kept_surfels(path):
+        t = time.perf_counter()
+        surfels[path] = to_surfels(path)
+        surfels["s"] = time.perf_counter() - t
+        return surfels[path]
+
+    for mode, argv in runs.items():
+        blend.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vis.mesh_to_surfels = kept_surfels
+        try:
+            res = vis.main([*argv, "--frames", str(frames), "--size",
+                            str(size), "--out",
+                            str(root / f"turntable_{mode}.webp")])
+        finally:
+            vis.mesh_to_surfels = to_surfels
+        wall = time.perf_counter() - t0
+        launches[mode] = blend.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dropped = res["dropped"]
+        print(f"[smoke] turntable {mode}: {frames} frames at {size}x{size} "
+              f"in {wall:.1f} s ({res['gaussians']} Gaussians"
+              + (f"; mesh_to_surfels {surfels['s']:.1f} s" if mode == "mesh"
+                 else "") + f"); ms per "
+              f"frame median {np.median(res['ms_per_frame']):.2f}, first "
+              f"{res['ms_per_frame'][0]:.2f}; dropped per frame {dropped}; "
+              f"launches {launches[mode]}; peak memory {peak} GiB; webp "
+              f"{Path(res['out']).stat().st_size} bytes on {card}")
+        if launches[mode]["blend_fwd"] != frames:
+            fail(f"turntable {mode}: K1 launched {launches[mode]['blend_fwd']} "
+                 f"times for {frames} frames")
+
+        # Frame 0 as the app renders it, through K1 and through its plain
+        # version (the render's blend_fwd looked up at call time).
+        if mode == "mesh":
+            centers, quats, log_scales, normals = surfels[str(mesh_ply)]
+            g = vis.surfel_gaussians(centers, quats, log_scales, dev)
+            center, dist = vis.orbit_distance(centers, -1.0)
+            centers_d = torch.as_tensor(centers, device=dev)
+            normals_d = torch.as_tensor(normals, device=dev)
+
+            def frame(cam):
+                return vis.mesh_frame(g, centers_d, normals_d, cam)
+        else:
+            raw = load_gaussian_ply(str(model_dir / "point_cloud"
+                                        / f"iteration_{it}" / "point_cloud.ply"))
+            g = Gaussians.from_raw(raw, 3, device=dev)
+            center, dist = vis.orbit_distance(np.asarray(raw["xyz"]), -1.0)
+
+            def frame(cam):
+                return vis.model_frame(g, cam, "render", 3)
+        cam = vis.orbit_camera(0, frames, center, dist, 0.35, size, dev)
+        img, drop = frame(cam)
+        saved = blend.blend_fwd
+        blend.blend_fwd = blend.blend_fwd_plain
+        try:
+            ref, ref_drop = frame(cam)
+        finally:
+            blend.blend_fwd = saved
+        d = np.abs(img - ref)
+        frac = float((d > 1e-5).mean())
+        print(f"[smoke] turntable {mode} frame 0, K1 vs plain: max |diff| "
+              f"{float(d.max()):.3g}, share over 1e-5 {frac:.3g}, dropped "
+              f"{drop} / {ref_drop}")
+        if frac > 1e-4 or float(d.max()) > 1e-3 * (1 + float(np.abs(ref).max())):
+            fail(f"turntable {mode}: frame 0 through K1 differs from its "
+                 f"plain version beyond K1's gate")
+        # K1 at frame 0's shapes: the app's fixed cap, its overflow kept.
+        cap = (vis.MESH_INSTANCE_CAP if mode == "mesh"
+               else vis.MODEL_INSTANCE_CAP)
+        rep, _ = kernel_phase(g, cam, 256, cap, 1, drop_ok=True)
+        print(f"[smoke] turntable-{mode} K1 blend_fwd (cap {cap}): "
+              f"{json.dumps(rep)}")
+        reports[mode] = {"blend_fwd": rep}
+        del g
+    return reports, launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2106,6 +2916,10 @@ def main(argv=None) -> None:
         dp_worker(args.dp_worker, args.dp_out, args.dp_scene, args.dp_full)
         return
     t_start = time.perf_counter()
+
+    def mark(label: str) -> None:
+        print(f"[smoke] t={time.perf_counter() - t_start:.1f} s: {label}",
+              flush=True)
 
     import torch
     if not torch.cuda.is_available():
@@ -2158,6 +2972,7 @@ def main(argv=None) -> None:
     render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9)
 
     # --- phase 4: the render app with DTU's mesh preset --------------------------
+    mark("phase 4")
     blend.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2211,12 +3026,14 @@ def main(argv=None) -> None:
     profile_call("render", render_view0, render_ms)
 
     # --- phase 4b: the same Gaussians in 4 bands (sp-render, sp-grad) ------
+    mark("phase 4b")
     sp_kernels, sp_launches = sp_path(g, cam, scene_dir, model_dir,
                                       stats[-1]["instance_cap"], card, dev,
                                       render_ms)
     del g
 
     # --- phase 5: the train app (this slice's path) -------------------------------
+    mark("phase 5")
     t0 = time.perf_counter()
     train_dir = build_train_scene(root, TRAIN_POINTS, TRAIN_W, TRAIN_H,
                                   TRAIN_VIEWS, args.seed)
@@ -2342,6 +3159,7 @@ def main(argv=None) -> None:
     trim_phase(trainer, card)
 
     # --- phase 6: the kernels at the shapes the train path gives them ------
+    mark("phase 6")
     # After the timed steps, so the plain versions' large buffers do not sit
     # in the allocator while steps are timed. The trained Gaussians on view 0
     # at 800x600, the geometry stage's V=8 (feature_count 5), the trainer's
@@ -2351,23 +3169,28 @@ def main(argv=None) -> None:
         trainer.pipe.chunk, trainer.instance_cap, 5)
 
     # --- phase 6a: the viewer bridge with train-full's Gaussians -----------
+    mark("phase 6a")
     viewer_path(trainer, card)
     del trainer
 
     # --- phase 6c: the binning termination cut (train-opaque-cut) ----------
+    mark("phase 6c")
     cut_kernels, cut_launches = cut_path(train_dir, card, dev)
     torch.cuda.empty_cache()
 
     # --- phase 6b: two data-parallel ranks of the train app (dp-train) -----
+    mark("phase 6b")
     dp_kernels, dp_launches = dp_path(root, train_dir, card, dev, geo_ms)
 
     material_kernels, mat_launches = material_path(root, train_dir, argv,
                                                    card, dev)
 
     # --- phase 7: the quality gate at the JAX package's smoke scale ---------
+    mark("phase 7")
     q, gate, q_launches = quality_path(root / "quality", card)
 
     # --- phase 8: the kernels at the shapes the quality path gives them ----
+    mark("phase 8")
     # The gate's trained Gaussians (its iteration-600 snapshot's state) on
     # view 0 at 120x90, the steps' V=8 (feature_count 5), chunk 64 and its
     # trainer's instance cap.
@@ -2376,20 +3199,56 @@ def main(argv=None) -> None:
         gate.pipe.chunk, gate.instance_cap, 5)
 
     # --- phase 9: the material gate at smoke scale ---------------------------
+    mark("phase 9")
     material_gate_path(root / "material_gate", card)
 
     # --- phase 10: LPIPS on the card, the metrics app's LPIPS column --------
+    mark("phase 10")
     lpips_path(root, model_dir, card, args.seed)
 
     # --- phase 11: the quality gate on the composite scene at smoke scale ---
+    mark("phase 11")
     composite_path(root / "composite", card)
+    del gate
+    torch.cuda.empty_cache()   # the runners' apps run in processes of their own
+
+    # --- phase 12: the TnT protocol through run_tnt (tnt-protocol) ----------
+    mark("tnt-protocol")
+    tnt = tnt_protocol_path(root, card, args.seed)
+    tnt_kernels = model_kernels("tnt-protocol", tnt["model"], 5, tnt["cap"],
+                                dev)
+    torch.cuda.empty_cache()
+
+    # --- phase 13: the DTU protocol through run_dtu (dtu-protocol) ----------
+    mark("dtu-protocol")
+    dtu = dtu_protocol_path(root, card, args.seed)
+    # (K3 is not on this path: the trim's first boundary, 1,000, lies past
+    # its 600 iterations.)
+    dtu_kernels = model_kernels("dtu-protocol", dtu["model"], 5, dtu["cap"],
+                                dev)
+    torch.cuda.empty_cache()
+
+    # --- phase 14: turntables of the dtu-protocol model and its mesh --------
+    mark("turntable")
+    tt_kernels, tt_launches = turntable_path(root, dtu["model"], dtu["mesh"],
+                                             card)
+    torch.cuda.empty_cache()
+
+    # --- phase 15: Shiny Blender's ball through run_shiny (shiny-protocol) --
+    mark("shiny-protocol")
+    shiny = shiny_protocol_path(root, card, args.seed)
+    shiny_kernels = model_kernels("shiny-protocol", shiny["model"], 9,
+                                  shiny["cap"], dev)
+    shiny_launches = {name: shiny["by_width"].get((name, 16), 0)
+                      for name in ("blend_fwd", "blend_bwd")}
 
     # One record per kernel and path, each from the kernel phase run at that
     # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
     # quality cell are checked above, but their paths do not launch them
     # (the render app takes no backward; the gate's trim would fire at
-    # 1,000), so they have no record here. The material cell's records are
-    # K1 and K2 at V=16, with their V=16 launches.
+    # 1,000), so they have no record here. The material and shiny cells'
+    # records are K1 and K2 at V=16, with their V=16 launches; the runner
+    # cells' launches are summed over the apps each runner started.
     replaces = {"blend_fwd": 125, "blend_bwd": 322, "blend_obs": 227}
     records = []
     for cell, reports, path_launches in (
@@ -2405,7 +3264,12 @@ def main(argv=None) -> None:
                                                      "blend_bwd")},
              dp_launches),
             ("sp-render", sp_kernels["sp-render"], sp_launches["sp-render"]),
-            ("sp-grad", sp_kernels["sp-grad"], sp_launches["sp-grad"])):
+            ("sp-grad", sp_kernels["sp-grad"], sp_launches["sp-grad"]),
+            ("dtu-protocol", dtu_kernels, dtu["launches"]),
+            ("turntable-model", tt_kernels["model"], tt_launches["model"]),
+            ("turntable-mesh", tt_kernels["mesh"], tt_launches["mesh"]),
+            ("tnt-protocol", tnt_kernels, tnt["launches"]),
+            ("shiny-protocol", shiny_kernels, shiny_launches)):
         for name, rep in reports.items():
             records.append({
                 "name": name, "cell": cell, "route": "cuda",

@@ -26,8 +26,9 @@ BASELINE.md). --production alone is the full protocol: 800x600, 49 views,
 40,000 points, 30k iterations (reference: QUALITY_GATE_r05.json). The
 scenes' pieces (`ring_camera`, `make_sphere_data`, `COMPOSITE` and
 the composite's sampler, distance and colors) are numpy copies of
-tests/make_synthetic_scene.py's, `sample_mesh_surface` is
-scripts/eval_dtu.py's, `composite_chamfer` scripts/run_quality_gate.py's.
+tests/make_synthetic_scene.py's, `composite_chamfer` is
+scripts/run_quality_gate.py's; the chamfers sample the mesh with
+apps/eval_dtu.py's `sample_mesh_surface`.
 
 Usage: python -m gs2m_tpu_torch.apps.quality_gate --out <dir> \\
            [--production [--smoke]] [--scene sphere|composite] \\
@@ -43,6 +44,8 @@ import time
 
 import numpy as np
 import torch
+
+from gs2m_tpu_torch.apps.eval_dtu import sample_mesh_surface
 
 
 def ring_camera(theta: float, dist: float = 4.0, height: float = 0.8):
@@ -265,41 +268,6 @@ def build_scene(out_dir: str, n_views: int = 10, width: int = 64,
     cm.write_points3d_binary(os.path.join(out_dir, "sparse/0/points3D.bin"),
                              noisy.astype(np.float64), (cols[sel] * 255))
     return out_dir
-
-
-def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray,
-                        density: float) -> np.ndarray:
-    """Vertices + regular barycentric samples at ~`density` spacing
-    (bucketed by (n1, n2) per triangle)."""
-    tri = vertices[faces]
-    v1 = tri[:, 1] - tri[:, 0]
-    v2 = tri[:, 2] - tri[:, 0]
-    l1 = np.linalg.norm(v1, axis=-1)
-    l2 = np.linalg.norm(v2, axis=-1)
-    area2 = np.linalg.norm(np.cross(v1, v2), axis=-1)
-    ok = area2 > 0
-    v1, v2, base, l1, l2, area2 = v1[ok], v2[ok], tri[ok, 0], l1[ok], l2[ok], area2[ok]
-    thr = density * np.sqrt(l1 * l2 / area2)
-    n1 = np.floor(l1 / thr).astype(np.int64)
-    n2 = np.floor(l2 / thr).astype(np.int64)
-
-    pts = [vertices]
-    key = n1 * 100_000 + n2
-    for k in np.unique(key):
-        sel = key == k
-        a, b = int(n1[sel][0]), int(n2[sel][0])
-        c = np.mgrid[:a + 1, :b + 1].astype(np.float64) + 0.5
-        c[0] /= max(a, 1e-7)
-        c[1] /= max(b, 1e-7)
-        c = c.transpose(1, 2, 0).reshape(-1, 2)
-        k2 = c[c.sum(-1) < 1]                      # (m, 2) barycentric
-        if len(k2) == 0:
-            continue
-        q = (v1[sel][:, None, :] * k2[None, :, :1]
-             + v2[sel][:, None, :] * k2[None, :, 1:]
-             + base[sel][:, None, :])
-        pts.append(q.reshape(-1, 3))
-    return np.concatenate(pts, 0)
 
 
 def sphere_chamfer(mesh_ply: str, radius: float = 1.0) -> dict:

@@ -137,9 +137,13 @@ package's grad gate (blend_pallas.py:574-589). Deterministic: no atomics.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
+import json
 import math
+import os
+import sys
 from collections import Counter
 from typing import NamedTuple
 
@@ -170,6 +174,24 @@ def launch_counts() -> dict[str, int]:
     for (name, _), n in LAUNCHES.items():
         out[name] += n
     return out
+
+
+# A process started with GS2M_LAUNCH_LOG=<file> in its environment appends,
+# at exit, one JSON line of its argv and its LAUNCHES to that file: how the
+# launches of apps that the benchmark runners (apps/run_*.py) start as
+# subprocesses are counted.
+LAUNCH_LOG_ENV = "GS2M_LAUNCH_LOG"
+
+
+def _append_launch_log(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"argv": sys.argv, "launches": [
+            [name, V, n] for (name, V), n in sorted(LAUNCHES.items())]})
+            + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])
 
 # Null slots per segment of the per-Gaussian reduction (see segment_sum).
 NULL_RUN = 256

@@ -1,10 +1,13 @@
 """The port stands alone: no module of gs2m_tpu_torch, and not chip_smoke.py,
-imports JAX or anything of the JAX package (gs2m_tpu_torch itself is fine).
+imports JAX or anything of the JAX package (gs2m_tpu_torch itself is fine),
+and no string constant of theirs names a JAX package module (`gs2m_tpu.`
+followed by a module name), which a runner would launch with `python -m`.
 
 An AST scan, not a sys.modules check: the test process has JAX loaded for
 the comparison tests.
 """
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -46,7 +49,11 @@ def test_port_has_its_modules():
                 # parallelism
                 "parallel/__init__", "parallel/dp", "parallel/sp",
                 # the last surface: LPIPS and the viewer bridge
-                "utils/lpips", "apps/network_gui"):
+                "utils/lpips", "apps/network_gui",
+                # the benchmark harness
+                "apps/eval_dtu", "apps/run_dtu", "apps/report_dtu",
+                "apps/eval_tnt", "apps/convert_json", "apps/run_tnt",
+                "apps/run_shiny", "apps/run_glossy", "apps/vis_turntable"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 
@@ -56,3 +63,25 @@ def test_no_jax_or_jax_package_imports(path):
     for name in _imported(tree):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+JAX_MODULE = re.compile(r"\bgs2m_tpu\.[A-Za-z_]")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_string_names_a_jax_package_module(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not JAX_MODULE.search(node.value), (
+                f"{path.name}:{node.lineno} names a JAX package module: "
+                f"{node.value[:80]!r}")
+
+
+def test_string_scan_sees_a_module_launch():
+    tree = ast.parse('run([sys.executable, "-m", "gs2m_tpu.apps.train"])\n'
+                     'x = f"-m gs2m_tpu.apps.{name}"\n'
+                     'ok = ["gs2m_tpu_torch.apps.train", "gs2m_tpu/ops/a.py"]')
+    hits = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and JAX_MODULE.search(n.value)]
+    assert sorted(hits) == ["-m gs2m_tpu.apps.", "gs2m_tpu.apps.train"]
