@@ -76,33 +76,36 @@ def profile_summary(profiler, wall_ms: float, top: int = 25) -> dict:
 
 
 def step_stages(profiler, busy_ms: float) -> dict:
-    """Device ms of the profiled train steps by stage, from the ranges of
-    train/trainer.py::make_train_step: "render" (the step's renders),
-    "pbr" (the PBR pass with build_mips), "losses" (the rest of the
-    forward), "backward" (what step/backward launches, and every kernel
-    launched on the autograd engine's own threads, where a card's backward
-    runs), "reduce" (the data-parallel step's collectives), "update"
-    (densification statistics and Adam), "light" (the
-    light's Adam step) and "other" (the rest of `busy_ms`: work outside
-    the steps). Empty when the window holds no step."""
+    """Device ms of the profiled train steps by stage, from the spans of
+    train/trainer.py::make_train_step (utils/spans.py::STAGES): "render"
+    (the step's renders), "pbr" (the PBR pass with build_mips), "losses"
+    (the rest of the forward), "backward" (what step/backward launches,
+    and every kernel launched on the autograd engine's own threads, where
+    a card's backward runs), "reduce" (the data-parallel step's
+    collectives), "update" (densification statistics and Adam), "light"
+    (the light's Adam step) and "other" (the rest of `busy_ms`: work
+    outside the steps). Empty when the window holds no step."""
     from torch.autograd import DeviceType
 
+    from gs2m_tpu_torch.utils.spans import STAGES
+
     ev = [e for e in profiler.events() if e.device_type == DeviceType.CPU]
-    steps = {e.thread for e in ev if e.name == "step/forward"}
+    steps = {e.thread for e in ev if e.name == STAGES["forward"]}
     if not steps:
         return {}
 
-    def ms(name):
-        return sum(e.device_time_total for e in ev if e.name == name) / 1e3
+    def ms(stage):
+        return sum(e.device_time_total for e in ev
+                   if e.name == STAGES[stage]) / 1e3
 
     engine = sum(e.device_time_total for e in ev
                  if e.cpu_parent is None and e.thread not in steps) / 1e3
-    out = {"render": ms("step/render"), "pbr": ms("step/pbr")}
-    out["losses"] = ms("step/forward") - out["render"] - out["pbr"]
-    out["backward"] = ms("step/backward") + engine
-    out["reduce"] = ms("step/reduce")
-    out["update"] = ms("step/update")
-    out["light"] = ms("step/light")
+    out = {"render": ms("render"), "pbr": ms("pbr")}
+    out["losses"] = ms("forward") - out["render"] - out["pbr"]
+    out["backward"] = ms("backward") + engine
+    out["reduce"] = ms("reduce")
+    out["update"] = ms("update")
+    out["light"] = ms("light")
     out["other"] = busy_ms - sum(out.values())
     return out
 

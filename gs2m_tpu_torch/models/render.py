@@ -10,7 +10,8 @@ output surface:
   sobel_map (3,H,W, optional) | final_T (H,W) | dropped () |
   dropped_expand () | aligned_demand () (the binning's expansion-cap
   overflow and aligned slots in use, which the trainer sizes its caps from)
-  | num_instances () (port only: the binned instance count, for reports)
+  | num_instances () | num_kept () (port only: the binned instance count
+  and the instances the per-tile cull keeps, for reports)
 
 feature_count staging: 1 (RGB warmup) / 5 (+distance+normal, geometry) /
 9 (+albedo+roughness, material) / +1 when blending metallic.
@@ -33,6 +34,7 @@ from gs2m_tpu_torch.ops.projection import project
 from gs2m_tpu_torch.ops.rasterize import (RasterOut, build_features,
                                           observe_from_projected,
                                           rasterize_from_projected)
+from gs2m_tpu_torch.utils import spans
 
 
 def feature_count_for(geometry_stage: bool, material_stage: bool,
@@ -135,7 +137,14 @@ def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
         "dropped_expand": out.dropped_expand,
         "aligned_demand": out.aligned_demand,
         "num_instances": out.num_instances,
+        "num_kept": out.num_kept,
     }
+    # Per render, for the span recorder (nothing while it is off): the
+    # (tile, Gaussian) pairs the binning expands, those the per-tile cull
+    # keeps, and the chunk-aligned slots K1/K2 walk.
+    spans.count("instances", out.num_instances)
+    spans.count("kept_instances", out.num_kept)
+    spans.count("aligned_slots", out.aligned_demand)
     if sobel_normal:
         pkg["sobel_map"] = render_normal_from_depth_map(
             camera, depth_map[0], bg, pkg["alpha_map"][0])

@@ -73,6 +73,9 @@ class Binning(NamedTuple):
     num_aligned: torch.Tensor    # () int32 — chunk-aligned slots in use
     gauss_present: torch.Tensor  # (C,) int32 instances surviving the cull
     dropped_expand: torch.Tensor  # () int32 — the expansion-cap part of dropped
+    # () int32 — instances kept by the cull (and cut); None in a layout made
+    # from the JAX package's Binning, which has no such count.
+    num_kept: torch.Tensor | None = None
 
 
 def num_tiles(height: int, width: int, tile: int) -> tuple[int, int]:
@@ -238,6 +241,7 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
         tile_sorted, torch.arange(T + 1, dtype=I32, device=dev)).to(I32)
     start = start_fill[:T]
     counts = start_fill[1:] - start
+    num_kept = start_fill[T]            # the live slots sort first
     live_kept = tile_sorted < T
 
     if term_cut:
@@ -256,7 +260,9 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
         kept = kept_raw & (last_bad < seg_start)
         kcs2 = torch.cat([torch.zeros(1, dtype=I32, device=dev),
                           _cumsum(kept.to(I32))])
-        counts = kcs2[start_fill[1:].long()] - kcs2[start.long()]
+        kept_to = kcs2[start_fill.long()]   # kept before each tile's start
+        counts = kept_to[1:] - kept_to[:T]
+        num_kept = kept_to[T]
         live_kept = live_kept & kept
 
     # --- chunk alignment ----------------------------------------------------------
@@ -310,4 +316,5 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
         num_aligned=torch.clamp_max(atotal, I).to(I32),
         gauss_present=gauss_present,
         dropped_expand=dropped_expand.to(I32),
+        num_kept=num_kept,
     )

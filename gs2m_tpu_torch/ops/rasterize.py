@@ -5,7 +5,8 @@ Port of gs2m_tpu/ops/rasterize.py's forward surface. Outputs are color
 (10,H,W) [alpha, plane distance, world normal x3, albedo x3, roughness,
 metallic], final T, radii, observe counts, the binning overflow
 `dropped` (with its expansion-cap part `dropped_expand`), the instance count
-`num_instances` and the aligned slots in use `aligned_demand`;
+`num_instances`, the aligned slots in use `aligned_demand` and the
+instances the per-tile cull keeps `num_kept`;
 `feature_count` (1/5/9/10) selects how many feature channels blend. The
 blend runs kernel K1 on CUDA tensors (ops/blend.py). `term_cut` bins with
 the termination cut (ops/binning.py), with the expansion side at
@@ -34,6 +35,7 @@ class RasterOut(NamedTuple):
     num_instances: torch.Tensor  # () int32 — (tile, Gaussian) pairs binned
     dropped_expand: torch.Tensor  # () int32 — the expansion-cap part of dropped
     aligned_demand: torch.Tensor  # () int32 — aligned slots in use
+    num_kept: torch.Tensor  # () int32 — instances kept by the per-tile cull
 
 
 def value_width(feature_count: int) -> int:
@@ -118,7 +120,8 @@ def rasterize_from_projected(
                      dropped=binning.dropped,
                      num_instances=binning.num_instances,
                      dropped_expand=binning.dropped_expand,
-                     aligned_demand=binning.num_aligned)
+                     aligned_demand=binning.num_aligned,
+                     num_kept=binning.num_kept)
 
 
 def observe_from_projected(

@@ -17,9 +17,9 @@ on the CPU all of them run on it.
   band's height. For bands that start on a tile boundary the shift is
   exact, so each band's pixels are the full-frame render's.
 * Outputs gather onto devices[0]: images by concatenating the bands' rows,
-  per-Gaussian observe counts, `dropped` and `num_instances` as sums over
-  the bands (each Gaussian's instances split disjointly over them), radii
-  as their max.
+  per-Gaussian observe counts, `dropped`, `num_instances` and `num_kept`
+  as sums over the bands (each Gaussian's instances split disjointly over
+  them), radii as their max.
 * Window losses cross band edges by halo exchange (`halo_extend`): the
   band's slab gains the neighbors' boundary rows, copied from their
   devices; the backward of that copy is the JAX package's transposed
@@ -118,7 +118,7 @@ class _Bands:
                     final_T=op.new_zeros(h, cam.width), radii=proj.radii,
                     observe=torch.zeros_like(proj.radii), dropped=zero,
                     num_instances=zero, dropped_expand=zero,
-                    aligned_demand=zero))
+                    aligned_demand=zero, num_kept=zero))
                 continue
             projc = crop_projected(proj, d * h, rows, tile)
             local_cam = dataclasses.replace(cam, height=rows)
@@ -154,7 +154,8 @@ class _Bands:
             dropped=sum(o.dropped.to(dev0) for o in outs),
             num_instances=sum(o.num_instances.to(dev0) for o in outs),
             dropped_expand=sum(o.dropped_expand.to(dev0) for o in outs),
-            aligned_demand=sum(o.aligned_demand.to(dev0) for o in outs))
+            aligned_demand=sum(o.aligned_demand.to(dev0) for o in outs),
+            num_kept=sum(o.num_kept.to(dev0) for o in outs))
 
 
 def make_sp_render(devices, n_bands: int, height: int, *,

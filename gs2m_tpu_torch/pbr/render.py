@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gs2m_tpu_torch.models import losses as L
 from gs2m_tpu_torch.pbr import cubemap as cm
 from gs2m_tpu_torch.pbr import shade as sh
 from gs2m_tpu_torch.train.optim import adam_init, adam_update
+from gs2m_tpu_torch.utils.spans import STAGES, span
 
 
 def view_dirs_world(camera) -> torch.Tensor:
@@ -113,7 +113,7 @@ def make_pbr_fns(base_res: int = 512, seed: int = 0, light=None,
                         generator=None, indices=None):
         from gs2m_tpu_torch.models.render import render as render_fn
 
-        with record_function("step/pbr"):
+        with span(STAGES["pbr"]):
             pbr_pkg = pbr_render(light_base, cam, pkg, brdf_lut,
                                  metallic_trained=model_cfg.metallic,
                                  gamma=model_cfg.gamma)
@@ -137,7 +137,7 @@ def make_pbr_fns(base_res: int = 512, seed: int = 0, light=None,
 
         Lr = gt.new_zeros(())
         if has_nearby:
-            with torch.no_grad(), record_function("step/render"):
+            with torch.no_grad(), span(STAGES["render"]):
                 npkg = render_fn(g, nearby_cam, gt.new_zeros(3),
                                  active_sh_degree, geometry_stage=True,
                                  **render_kw)

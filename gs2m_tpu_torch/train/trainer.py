@@ -61,7 +61,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gs2m_tpu_torch.core.config import ModelConfig, OptimConfig, PipelineConfig
 from gs2m_tpu_torch.core.gaussians import Gaussians
@@ -71,6 +70,7 @@ from gs2m_tpu_torch.models.render import count_observed, render
 from gs2m_tpu_torch.train import densify as D
 from gs2m_tpu_torch.train.optim import (AdamState, adam_init, adam_update,
                                         group_lrs, xyz_lr_schedule)
+from gs2m_tpu_torch.utils.spans import STAGES, set_step, span
 
 
 def choose_neighbor(rng: np.random.Generator, table_row: np.ndarray,
@@ -111,7 +111,7 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
         gt = scene.gt_images[view_idx]
         bg = gt.new_zeros(3)
         g = gaussians.with_params(params)
-        with record_function("step/render"):
+        with span(STAGES["render"]):
             pkg = render(g, cam, bg, active_sh_degree,
                          geometry_stage=geometry_stage,
                          material_stage=material_stage,
@@ -136,7 +136,7 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
         dropped_expand = aligned_demand = torch.zeros_like(dropped)
         if geometry_stage:
             nearest_cam = scene.train_cameras[nearest_idx]
-            with record_function("step/render"):
+            with span(STAGES["render"]):
                 npkg = render(g, nearest_cam, bg, active_sh_degree,
                               geometry_stage=True,
                               material_stage=material_stage, **cut_kw)
@@ -187,10 +187,11 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
     `light_opt_state`. `reduce` (parallel/dp.py::make_dp_train_step) maps
     this view's (parameter grads, light grad, statistics contribution,
     metrics) to the data-parallel batch's before the update. Its stages are
-    profiler ranges ("step/forward", "step/render", "step/pbr",
-    "step/backward", "step/reduce", "step/update", "step/light"), which
-    apps/train.py::step_stages reads. `term_cut` / `expand_cap`: see
-    make_view_objective."""
+    spans (utils/spans.py::STAGES: "step/forward", "step/render",
+    "step/pbr", "step/backward", "step/reduce", "step/update",
+    "step/light"): profiler ranges under a profiler session, which
+    apps/train.py::step_stages reads, and host times when the span
+    recorder is on. `term_cut` / `expand_cap`: see make_view_objective."""
     xyz_lr_fn = xyz_lr_schedule(opt, scene.cameras_extent)
     H = scene.train_cameras[0].height
     W = scene.train_cameras[0].width
@@ -206,7 +207,7 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
              light: torch.Tensor | None = None,
              light_opt_state: AdamState | None = None,
              nearby_idx: int = 0, has_nearby: bool = False):
-        with record_function("step/forward"):
+        with span(STAGES["forward"]):
             C = gaussians.capacity
             params = {k: v.detach().requires_grad_(True)
                       for k, v in gaussians.params_dict().items()}
@@ -221,7 +222,7 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
         leaves = list(params.values()) + [sink, abs_sink]
         if material_stage:
             leaves.append(light_leaf)
-        with record_function("step/backward"):
+        with span(STAGES["backward"]):
             grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
                 leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         light_grad = grads.pop() if material_stage else None
@@ -233,20 +234,20 @@ def make_train_step(model_cfg: ModelConfig, pipe: PipelineConfig,
                    "aligned_demand": aux["aligned_demand"],
                    "mv_active": int(geometry_stage and has_nearest),
                    "rough_active": int(material_stage and has_nearby)}
-        with record_function("step/update"):
+        with span(STAGES["update"]):
             contrib = D.stats_contribution(grads[-2], grads[-1],
                                            aux["visibility"], aux["radii"],
                                            aux["observe"], W, H)
         if reduce is not None:
-            with record_function("step/reduce"):
+            with span(STAGES["reduce"]):
                 param_grads, light_grad, contrib, metrics = reduce(
                     param_grads, light_grad, contrib, metrics)
-        with record_function("step/update"):
+        with span(STAGES["update"]):
             stats = D.accumulate_stats(stats, contrib)
             lrs = group_lrs(opt, scene.cameras_extent, xyz_lr_fn(iteration))
             adam_update(gaussians.params_dict(), param_grads, opt_state, lrs)
         if material_stage:
-            with record_function("step/light"):
+            with span(STAGES["light"]):
                 pbr_fns["light_update"](light, light_grad, light_opt_state,
                                         opt.opacity_lr)
         return gaussians, opt_state, stats, metrics
@@ -470,6 +471,7 @@ class Trainer:
     def train_step(self) -> dict:
         self.iteration += 1
         it = self.iteration
+        set_step(it)
         if it % 1000 == 0 and self.active_sh_degree < self.gaussians.max_sh_degree:
             self.active_sh_degree += 1
 

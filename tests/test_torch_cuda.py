@@ -7,8 +7,8 @@ the 0.99 clamp, empty and overflowing layouts, Gaussians that cross many
 warps and tiles, opacities next to 1/255, the largest chunks, tiles whose
 pixels all fall to T <= 0.5 early, where K3 retires them); and the mesh
 path (TSDF fusion, marching tetrahedra) on the card against the CPU; and
-the training step's properties on the card: no host sync per step and
-bit-equal reruns, in the geometry and the material stage; and the
+the training step's properties on the card: no host sync per step (also
+with the span recorder on) and bit-equal reruns, in the geometry and the material stage; and the
 parallel paths on the card: a 4-band render against the full frame and
 the one-rank data-parallel step against the single-view step; and the
 binning termination cut on the card: its layout equal to the CPU's, K1 on
@@ -447,6 +447,36 @@ def test_train_steps_do_not_sync_with_the_host(cuda, tmp_path, material):
     assert bool(torch.isfinite(metrics["loss"]))
     if material:
         assert trainer.rough_active_count > 0 and float(metrics["Lmat"]) > 0
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])
+def test_recorder_on_steps_do_not_sync_with_the_host(cuda, tmp_path, material):
+    """With the span recorder on (utils/spans.py), train steps still never
+    wait for the card: its counters keep the render packages' device
+    scalars until snapshot() reads them."""
+    from gs2m_tpu_torch.utils import spans
+
+    trainer = small_trainer(cuda, tmp_path, material)
+    for _ in range(3 if material else 1):     # warm up the lazy inits
+        trainer.train_step()
+    torch.cuda.synchronize()
+    spans.reset()
+    spans.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            trainer.train_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        spans.disable()
+    snap = spans.snapshot()
+    spans.reset()
+    assert len(snap["steps"]) == 3
+    renders = snap["spans"]["step/render"]["n"]
+    c = snap["counters"]
+    assert len(c["instances"]) == len(c["kept_instances"]) == renders >= 3
+    assert all(v > 0 for v in c["instances"])
+    assert all(0 < k <= i for k, i in zip(c["kept_instances"], c["instances"]))
 
 
 @pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])

@@ -85,6 +85,29 @@ def test_term_cut_layout_matches_jax(seed, n, opaque, cap_slack):
 
 
 @pytest.mark.parametrize("seed,n,opaque,cap_slack", CASES)
+def test_num_kept_counts_the_laid_out_instances(seed, n, opaque, cap_slack):
+    """`num_kept`, the instances the per-tile cull (and the cut) keep: the
+    per-Gaussian counts summed, and the layout's non-null slots where
+    nothing drops."""
+    g, cam, jp, tp, jop, top, dims = fuzz_case(seed, n, opaque, cap_slack)
+    H, W, tile, chunk, IB, I, IE, T = dims
+    base = tbin(tp, H, W, tile, IB, chunk, top)
+    cut = tbin(tp, H, W, tile, I, chunk, top, with_present=False,
+               term_cut=True, expand_cap=IE)
+    laid = int((~base.is_null).sum())
+    assert int(base.num_kept) == int(base.gauss_present.sum()) == laid
+    assert 0 < int(base.num_kept) <= int(base.num_instances)
+    laid = int((~cut.is_null).sum())
+    if int(cut.dropped) == 0:
+        assert int(cut.num_kept) == laid
+    else:
+        assert int(cut.num_kept) >= laid
+    assert int(cut.num_kept) <= int(base.num_kept)
+    if opaque and n >= 120 and cap_slack > 1:
+        assert int(cut.num_kept) < int(base.num_kept)
+
+
+@pytest.mark.parametrize("seed,n,opaque,cap_slack", CASES)
 def test_term_cut_is_prefix_and_blend_exact(seed, n, opaque, cap_slack):
     """The cut's contract, in the port: each tile's aligned segment is a
     prefix of the base layout's, and the blend (the plain versions of K1
