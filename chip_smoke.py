@@ -16,7 +16,19 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 cull skips, of K2's per-instance sums it skips and of K3's
                 steps and chunks its retirement skips, live chunks per tile,
                 and pass 1's share of K2 (a timing probe: csrc/blend_bwd.cu
-                built with GS2M_BWD_PASS1_ONLY)
+                built with GS2M_BWD_PASS1_ONLY); then the render's
+                per-Gaussian preprocess pair (csrc/preprocess.cu) against
+                the eager chain (ops/preprocess.py::preprocess_plain) on
+                the same view at SH degree 3: integer outputs equal, floats
+                at rtol 1e-4 / atol 1e-5, the nine leaves' gradients on
+                seeded cotangents at utils/grad_gate's gate against the
+                eager chain in float64 (on a trained state's flat Gaussians,
+                where the float32 chain misses that gate too, an error
+                distribution no wider than the chain's plus the gate's
+                tolerances), each kernel timed beside its bytes bound.
+                Every later kernel phase
+                (train, cut, dp, material, quality, runners, turntable)
+                checks the pair too, at its path's shapes and SH degree
   render path   the render app, gs2m_tpu_torch.apps.render.main, over all
                 views with --dtu: DTU's mesh preset (max depth 5, voxel
                 0.002, trunc 0.008, one cluster kept) fuses the views'
@@ -171,7 +183,9 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 model's shapes and the train app's final instance cap
 
 Launch counts are zeroed just before each path and read just after; every
-kernel of a path must have launched, as often as its schedule implies (on
+kernel of a path must have launched, as often as its schedule implies (the
+preprocess forward once per render and per trim view, its backward once per
+differentiated render; on
 the runners' paths, whose apps run in processes of their own, each app that
 launches a kernel must have launched it; each process appends its counts
 to a fresh file, read after the runner exits).
@@ -668,17 +682,198 @@ def k3_phase(ctx: dict) -> dict:
     return report
 
 
+def preprocess_bytes(C: int, k_rest: int, deg: int) -> tuple:
+    """(forward, backward) bytes the preprocess pair must move for C rows at
+    SH degree `deg` with colours: each row's parameters read once (the SH
+    coefficients the degree uses), the forward's outputs written once; the
+    backward reads the parameters and the five cotangents and writes the
+    nine leaves' gradients (all k_rest SH rows)."""
+    # xyz, f_dc, f_rest, scaling, rotation, opacity, albedo, roughness,
+    # metallic, alive; then the outputs in _launch_fwd's order.
+    params = 12 + 12 + 12 * ((deg + 1) ** 2 - 1) + 12 + 16 + 4 + 12 + 4 + 4 + 1
+    outs = 4 + 40 + 8 + 4 + 12 + 12 + 4 + 8 + 8 + 4 + 1
+    cots = 4 + 40 + 8 + 12 + 12
+    grads = 12 + 12 + 12 * k_rest + 12 + 16 + 4 + 12 + 4 + 4
+    return C * (params + outs), C * (params + cots + grads)
+
+
+def as_float64(obj):
+    """A copy of a Gaussians or a Camera with its float tensors in float64."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).double() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+        and getattr(obj, f.name).is_floating_point()})
+
+
+def preprocess_phase(cell: str, g, cam, deg: int,
+                     backward: bool = True) -> dict:
+    """The preprocess pair (csrc/preprocess.cu) against the eager chain
+    (ops/preprocess.py::preprocess_plain) on one view at a path's shapes
+    and SH degree: the forward's integer outputs equal and its floats at
+    rtol 1e-4 / atol 1e-5; with `backward`, the nine leaves' gradients on
+    seeded cotangents against autograd of the eager chain in float64 at
+    utils/grad_gate's gate (where the float32 chain fails that gate too,
+    the kernel's median and p90 relative error and its rel_to_max may
+    exceed the chain's by no more than the gate's tolerances); one launch
+    each way. Each kernel is timed by CUDA events (20 launches back to
+    back, per launch) beside its bound, C rows x the bytes each must move
+    (preprocess_bytes) over HBM's rate. Returns the reports by
+    launch-counter name."""
+    import torch
+
+    from gs2m_tpu_torch.ops import preprocess as pp
+    from gs2m_tpu_torch.ops.blend import LAUNCHES
+    from gs2m_tpu_torch.utils.grad_gate import (DEFAULT_TOL, REL_TO_MAX_TOL,
+                                                TOLERANCES, WELLCOND_FRAC,
+                                                grad_gate)
+
+    C = g.capacity
+    leaves = {k: v.detach().requires_grad_(backward)
+              for k, v in g.params_dict().items()}
+    gl = g.with_params(leaves)
+    n0 = (LAUNCHES["preprocess_fwd", 0], LAUNCHES["preprocess_bwd", 0])
+    got = pp.preprocess(gl, cam, deg)
+    ref = pp.preprocess_plain(gl, cam, deg)
+    fields = lambda o: {"opacities": o.opacities, "features": o.features,
+                        **o.proj._asdict()}
+    a = {k: v.detach() for k, v in fields(got).items()}
+    b = {k: v.detach() for k, v in fields(ref).items()}
+    int_differ = {k: int((a[k] != b[k]).sum()) for k in a
+                  if not a[k].is_floating_point()}
+    float_err = {k: float((a[k] - b[k]).abs().max()) for k in a
+                 if a[k].is_floating_point()}
+    over = {k: int((~torch.isclose(a[k], b[k], rtol=1e-4, atol=1e-5)).sum())
+            for k in float_err}
+    fwd_bytes, bwd_bytes = preprocess_bytes(C, g.features_rest.shape[1], deg)
+    fwd = {"rows": C, "deg": deg, "valid": int(b["valid"].sum()),
+           "int_differ": int_differ, "over_gate": over,
+           "max_abs_err": max(float_err.values())}
+    reports = {"preprocess_fwd": fwd}
+    if backward:
+        gen = torch.Generator(device=g.xyz.device).manual_seed(7)
+        cot = [torch.randn(C, *s, generator=gen, device=g.xyz.device)
+               for s in ((), (10,), (2,), (3,), (3,))]
+
+        def loss_of(o, cot):
+            return (torch.sum(o.opacities * cot[0])
+                    + torch.sum(o.features * cot[1])
+                    + torch.sum(o.proj.means2d * cot[2])
+                    + torch.sum(o.proj.conics * cot[3])
+                    + torch.sum(o.proj.colors * cot[4]))
+
+        def grads_of(o, cots, wrt):
+            return torch.autograd.grad(loss_of(o, cots), wrt,
+                                       retain_graph=True)
+
+        def gate(x, y, k):
+            """The gate's report, with the median and p90 of the relative
+            error over the entries it holds (|y| >= WELLCOND_FRAC max)."""
+            a, b = x.double().cpu().numpy(), y.double().cpu().numpy()
+            rep = grad_gate(a, b, TOLERANCES.get(k, DEFAULT_TOL))
+            out = {q: rep[q] for q in ("p999", "rel_to_max", "pass")}
+            wc = (np.abs(b) >= WELLCOND_FRAC * np.abs(b).max()) & (b != 0)
+            rel = np.abs(a - b)[wc] / np.abs(b)[wc]
+            out["entries"] = int(rel.size)
+            out["median"], out["p90"] = (
+                (float(np.quantile(rel, 0.5)), float(np.quantile(rel, 0.9)))
+                if rel.size else (0.0, 0.0))
+            return out
+
+        # The reference: autograd of the eager chain in float64. A trained
+        # state's flat Gaussians (the plane prior drives the smallest scale
+        # down) leave float32 too few bits for their covariance, so there
+        # the float32 chain misses it as far as the kernel does.
+        leaves64 = {k: v.detach().double().requires_grad_(True)
+                    for k, v in leaves.items()}
+        ref64 = pp.preprocess_plain(as_float64(g).with_params(leaves64),
+                                    as_float64(cam), deg)
+        wrt = list(leaves.values())
+        g_ker = grads_of(got, cot, wrt)
+        loss_plain = loss_of(ref, cot)
+        g_ref = torch.autograd.grad(loss_plain, wrt, retain_graph=True)
+        g_64 = grads_of(ref64, [c.double() for c in cot],
+                        list(leaves64.values()))
+        del ref64
+        gates = {}
+        for k, x, y, z in zip(leaves, g_ker, g_ref, g_64):
+            ker, f32 = gate(x, z, k), gate(y, z, k)
+            tol = TOLERANCES.get(k, DEFAULT_TOL)
+            # The kernel passes the gate against float64 where the float32
+            # chain does. Where that chain fails it too, the state is past
+            # what float32 resolves at the gate's tail (on a small state the
+            # p999 is the single worst entry, and two float32 orders of
+            # rounding lose it by turns); there the kernel's error must be
+            # the float32 chain's in distribution: its median and p90, and
+            # its largest error over the largest gradient, no more than the
+            # chain's plus the gate's tolerances. A derivation error moves
+            # every row, and so the median.
+            ok = ker["pass"] or (
+                not f32["pass"] and bool(torch.isfinite(x).all())
+                and ker["median"] <= f32["median"] + tol
+                and ker["p90"] <= f32["p90"] + tol
+                and ker["rel_to_max"] <= f32["rel_to_max"] + REL_TO_MAX_TOL)
+            gates[k] = {"kernel_vs_f64": ker, "f32_chain_vs_f64": f32,
+                        "kernel_vs_f32_chain": gate(x, y, k), "pass": ok}
+        reports["preprocess_bwd"] = {
+            "rows": C, "deg": deg, "gates": gates,
+            "max_abs_err": max(float((x - y).abs().max())
+                               for x, y in zip(g_ker, g_ref))}
+    launched = (LAUNCHES["preprocess_fwd", 0] - n0[0],
+                LAUNCHES["preprocess_bwd", 0] - n0[1])
+    problems = [k for k, n in int_differ.items() if n] + [
+        k for k, n in over.items() if n]
+    if backward:
+        problems += [k for k, v in reports["preprocess_bwd"]["gates"].items()
+                     if not v["pass"]]
+    if launched != (1, int(backward)):
+        problems.append(f"launches {launched}, expected (1, "
+                        f"{int(backward)})")
+
+    # Timing: the kernels through their launchers, 20 back to back per
+    # CUDA-event window, so that at large states the host issues ahead of
+    # the card; at a few thousand rows the figure is the launch's.
+    ins = [x.detach().contiguous() for x in pp._inputs(g, cam)]
+    meta = pp._Meta(deg, 16, cam.width, cam.height, True, False,
+                    float(cam.zfar))
+    reps = 20
+    with torch.no_grad():
+        fwd["ms"] = time_ms(lambda: [pp._launch_fwd(ins, meta)
+                                     for _ in range(reps)], 5) / reps
+        fwd["plain_ms"] = time_ms(lambda: pp.preprocess_plain(g, cam, deg), 3)
+    fwd.update(bound(fwd_bytes, 0.0))
+    if backward:
+        cots = tuple(cot)
+        bwd = reports["preprocess_bwd"]
+        bwd["ms"] = time_ms(lambda: [pp._launch_bwd(ins, cots, meta)
+                                     for _ in range(reps)], 5) / reps
+        bwd["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            loss_plain, list(leaves.values()), retain_graph=True), 3)
+        bwd.update(bound(bwd_bytes, 0.0))
+    for name, rep in reports.items():
+        print(f"[smoke] {cell} {name}: {json.dumps(rep)}")
+    if problems:
+        fail(f"{cell} preprocess pair against the eager chain: {problems}")
+    return reports
+
+
 def kernel_phases(cell: str, g, cam, chunk: int, cap: int,
-                  feature_count: int, bin_kw: dict | None = None) -> dict:
-    """K1, K2 and K3 against their plain versions on one view of a cell;
-    returns each kernel's report by launch-counter name."""
+                  feature_count: int, deg: int,
+                  bin_kw: dict | None = None) -> dict:
+    """K1, K2 and K3 against their plain versions on one view of a cell,
+    and the preprocess pair at SH degree `deg`; returns each kernel's
+    report by launch-counter name."""
     k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count, bin_kw=bin_kw)
     print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
     k2 = k2_phase(ctx)
     print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
     k3 = k3_phase(ctx)
     print(f"[smoke] {cell} K3 blend_obs: {json.dumps(k3)}")
-    return {"blend_fwd": k1, "blend_bwd": k2, "blend_obs": k3}
+    return {"blend_fwd": k1, "blend_bwd": k2, "blend_obs": k3,
+            **preprocess_phase(cell, g, cam, deg)}
 
 
 def build_train_scene(root: Path, n: int, width: int, height: int,
@@ -912,23 +1107,28 @@ def gate_probe():
     return) and counts the renders its stages make outside the train steps
     (the GT builder's rasterize_from_projected, the evaluations' and the
     render app's render), with those that overflowed their instance cap and
-    so were rendered again. Those stages look the names up when they run;
-    the train steps bind render when train/trainer.py is imported (here,
-    before the patch) and are counted from the schedule."""
+    so were rendered again (the GT builder's apart too). Those stages look
+    the names up when they run; the train steps bind render when
+    train/trainer.py is imported (here, before the patch) and are counted
+    from the schedule."""
     import gs2m_tpu_torch.train.trainer  # noqa: F401  (binds the real render)
     from gs2m_tpu_torch.apps import train as train_app
     from gs2m_tpu_torch.models import render as render_mod
     from gs2m_tpu_torch.ops import rasterize
 
-    probe = {"trainer": None, "renders": 0, "overflows": 0}
+    probe = {"trainer": None, "renders": 0, "overflows": 0,
+             "gt_overflows": 0}
     saved = (train_app.main, render_mod.render,
              rasterize.rasterize_from_projected)
 
-    def counted(fn, dropped):
+    def counted(fn, dropped, own=None):
         def call(*args, **kw):
             out = fn(*args, **kw)
+            over = int(dropped(out) > 0)
             probe["renders"] += 1
-            probe["overflows"] += int(dropped(out) > 0)
+            probe["overflows"] += over
+            if own:
+                probe[own] += over
             return out
         return call
 
@@ -938,8 +1138,8 @@ def gate_probe():
 
     train_app.main = train_main
     render_mod.render = counted(saved[1], lambda pkg: int(pkg["dropped"]))
-    rasterize.rasterize_from_projected = counted(saved[2],
-                                                 lambda out: int(out.dropped))
+    rasterize.rasterize_from_projected = counted(
+        saved[2], lambda out: int(out.dropped), "gt_overflows")
     try:
         yield probe
     finally:
@@ -982,6 +1182,12 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
                             + n_train + n_test + probe["overflows"]),
               "blend_bwd": it + gate.mv_active_count,
               "blend_obs": n_trims * n_train}
+    # The preprocess pair: forward once per render() and per trim view (every
+    # K1 and K3 launch but the GT builder's, which projects through the eager
+    # chain), backward once per differentiated render (each K2 launch).
+    want_q["preprocess_fwd"] = (want_q["blend_fwd"] - q["views"]
+                                - probe["gt_overflows"] + want_q["blend_obs"])
+    want_q["preprocess_bwd"] = want_q["blend_bwd"]
     print(f"[smoke] quality gate: {json.dumps(q)}")
     print(f"[smoke] quality gate (smoke scale): chamfer "
           f"{q['chamfer']['chamfer_mean']:.5f} (limit {CHAMFER_MAX}), test "
@@ -1050,6 +1256,10 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
             ("blend_fwd", 16): 2 * n_mat + EVAL_VIEWS,
             ("blend_bwd", 8): n_warm,
             ("blend_bwd", 16): n_mat + mt.mv_active_count}
+    # The preprocess pair once per render and once per differentiated one.
+    want["preprocess_fwd", 0] = (want["blend_fwd", 8]
+                                 + want["blend_fwd", 16])
+    want["preprocess_bwd", 0] = want["blend_bwd", 8] + want["blend_bwd", 16]
     m = mt.last_metrics
     light0 = mt.pbr_fns["init_light"]()
     print(f"[smoke] material train app: {TRAIN_ITERS} iterations ({n_warm} "
@@ -1141,9 +1351,13 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
     print(f"[smoke] train-material K2 blend_bwd: {json.dumps(k2)}")
     if k1["V"] != 16 or k2["V"] != 16:
         fail(f"train-material kernels at V={k1['V']}/{k2['V']}, not 16")
-    return ({"blend_fwd": k1, "blend_bwd": k2},
+    pre = preprocess_phase("train-material", mt.gaussians,
+                           mt.scene.train_cameras[0], mt.active_sh_degree)
+    return ({"blend_fwd": k1, "blend_bwd": k2, **pre},
             {"blend_fwd": launches["blend_fwd", 16],
-             "blend_bwd": launches["blend_bwd", 16]})
+             "blend_bwd": launches["blend_bwd", 16],
+             "preprocess_fwd": launches["preprocess_fwd", 0],
+             "preprocess_bwd": launches["preprocess_bwd", 0]})
 
 
 def material_gate_path(out: Path, card: str) -> dict:
@@ -1318,7 +1532,8 @@ def dp_worker(rank: int, out: Path, train_dir: Path, full: bool) -> None:
     if full and rank == 0:
         report["kernels"] = kernel_phases(
             "dp-train", trainer.gaussians, trainer.scene.train_cameras[0],
-            trainer.pipe.chunk, trainer.instance_cap, 5)
+            trainer.pipe.chunk, trainer.instance_cap, 5,
+            trainer.active_sh_degree)
     (out / f"rank{rank}.json").write_text(json.dumps(report))
     print(f"[smoke] dp worker {rank} done", flush=True)
 
@@ -1418,6 +1633,9 @@ def dp_path(root: Path, train_dir: Path, card: str, dev, geo_ms: float):
     want = {"blend_fwd": n_warm + 2 * n_geo,
             "blend_bwd": n_warm + n_geo + r0["mv_active"] // DP_RANKS,
             "blend_obs": 0}
+    # The preprocess pair once per render and once per differentiated one.
+    want["preprocess_fwd"] = want["blend_fwd"]
+    want["preprocess_bwd"] = want["blend_bwd"]
     mean = one_process_mean_digest(train_dir, [r["first_step"] for r in first],
                                    dev)
     print(f"[smoke] dp-train: {DP_RANKS} ranks ({r0['backend']}, "
@@ -1553,6 +1771,13 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
         fail(f"render app --spatial {SP_BANDS}: K1 launched "
              f"{render_launches['blend_fwd']} times, expected {SP_BANDS} x "
              f"({VIEWS} views + {regrowths} regrowths)")
+    # One preprocess per banded render (the one card's copy feeds every
+    # band), none backward.
+    if (render_launches["preprocess_fwd"], render_launches["preprocess_bwd"]
+            ) != (VIEWS + regrowths, 0):
+        fail(f"render app --spatial {SP_BANDS}: preprocess launches "
+             f"{render_launches}, expected {VIEWS + regrowths} forward and "
+             f"none backward")
     worst = 0
     for kind in ("render", "normal", "depth"):
         a_dir = model_dir / "train" / "ours_1" / kind
@@ -1621,9 +1846,10 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
         fail("sp-grad: the banded geometry gradient disagrees with the "
              "one-card assembly")
     if grad_launches != {"blend_fwd": SP_BANDS, "blend_bwd": SP_BANDS,
-                         "blend_obs": 0}:
+                         "blend_obs": 0, "preprocess_fwd": 1,
+                         "preprocess_bwd": 1}:
         fail(f"sp-grad launches {grad_launches}, expected {SP_BANDS} each of "
-             f"K1 and K2")
+             f"K1 and K2 and one each of the preprocess pair")
     del g_full, g_sp, leaves
 
     # One band's shapes: band 1 (rows 304..607 at 1200 rows).
@@ -1810,7 +2036,7 @@ def cut_layout_phase(tr, base_cap: int, card: str) -> dict:
         fail("K3 counts on the cut layout differ from the base layout's")
     del outs, o0, o1, g0, g1
     return kernel_phases("train-opaque-cut", g, cam, chunk, tr.instance_cap,
-                         5, bin_kw=cut_kw)
+                         5, tr.active_sh_degree, bin_kw=cut_kw)
 
 
 def cut_step_turns(tr, base_cap: int, card: str) -> None:
@@ -1928,7 +2154,8 @@ def cut_path(train_dir: Path, card: str, dev):
     torch.cuda.synchronize()
     launches = blend.launch_counts()
     want = {"blend_fwd": 2 * CUT_STEPS, "blend_bwd": 2 * CUT_STEPS,
-            "blend_obs": TRAIN_VIEWS}
+            "blend_obs": TRAIN_VIEWS, "preprocess_fwd": 2 * CUT_STEPS
+            + TRAIN_VIEWS, "preprocess_bwd": 2 * CUT_STEPS}
     print(f"[smoke] train-opaque-cut trainer: iterations {CUT_FROM + 1}.."
           f"{tr.iteration} with the cut, caps (iteration, instance, expand) "
           f"{caps}; last loss {float(m['loss']):.5f}, dropped {int(dropped)}, "
@@ -2287,7 +2514,9 @@ def launch_log(path: Path) -> tuple:
                 by_kernel[name] += n
                 by_width[name, V] += n
                 counts[name] += n
-    out = dict.fromkeys(("blend_fwd", "blend_bwd", "blend_obs"), 0)
+    from gs2m_tpu_torch.ops.blend import KERNELS
+
+    out = dict.fromkeys(KERNELS, 0)
     out.update(by_kernel)
     return out, dict(by_width), {k: dict(v) for k, v in by_app.items()}
 
@@ -2336,7 +2565,8 @@ def model_kernels(cell: str, model_dir: Path, feature_count: int, cap: int,
     print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
     k2 = k2_phase(ctx)
     print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
-    return {"blend_fwd": k1, "blend_bwd": k2}
+    return {"blend_fwd": k1, "blend_bwd": k2,
+            **preprocess_phase(cell, g, cam, g.max_sh_degree)}
 
 
 def make_dtu_official(root: Path, scan: int, seed: int, scale: float,
@@ -2513,9 +2743,10 @@ def dtu_protocol_path(root: Path, card: str, seed: int) -> dict:
     if table[f"scan{DTU_SCAN}"]["overall"] != results["overall"]:
         fail("dtu-protocol: report_dtu's table disagrees with results.json")
     # K3 runs at the trim, every 1,000 iterations.
-    want = {"train": ("blend_fwd", "blend_bwd")
+    want = {"train": ("blend_fwd", "blend_bwd", "preprocess_fwd",
+                      "preprocess_bwd")
             + (("blend_obs",) if iterations >= 1000 else ()),
-            "render": ("blend_fwd",)}
+            "render": ("blend_fwd", "preprocess_fwd")}
     for app, names in want.items():
         for name in names:
             if by_app.get(app, {}).get(name, 0) < 1:
@@ -2700,8 +2931,9 @@ def tnt_protocol_path(root: Path, card: str, seed: int) -> dict:
     check_transform("the trajectory alignment", err0, ALIGN_TOL)
     check_transform("the transform from the analytic surface", w_err,
                     WITNESS_TOL)
-    for app, names in {"train": ("blend_fwd", "blend_bwd"),
-                       "render": ("blend_fwd",)}.items():
+    for app, names in {"train": ("blend_fwd", "blend_bwd", "preprocess_fwd",
+                                 "preprocess_bwd"),
+                       "render": ("blend_fwd", "preprocess_fwd")}.items():
         for name in names:
             if by_app.get(app, {}).get(name, 0) < 1:
                 fail(f"tnt-protocol: {app} launched {name} no time")
@@ -2794,6 +3026,9 @@ def shiny_protocol_path(root: Path, card: str, seed: int) -> dict:
     for name in ("blend_fwd", "blend_bwd"):
         if by_width.get((name, 16), 0) < 1:
             fail(f"shiny-protocol: {name} never launched at V=16")
+    for name in ("preprocess_fwd", "preprocess_bwd"):
+        if launches[name] < 1:
+            fail(f"shiny-protocol: {name} never launched")
     return {"launches": launches, "by_width": by_width, "model": model,
             "cap": train_cap(lines)}
 
@@ -2852,9 +3087,10 @@ def turntable_path(root: Path, model_dir: Path, mesh_ply: Path,
               f"{res['ms_per_frame'][0]:.2f}; dropped per frame {dropped}; "
               f"launches {launches[mode]}; peak memory {peak} GiB; webp "
               f"{Path(res['out']).stat().st_size} bytes on {card}")
-        if launches[mode]["blend_fwd"] != frames:
-            fail(f"turntable {mode}: K1 launched {launches[mode]['blend_fwd']} "
-                 f"times for {frames} frames")
+        if (launches[mode]["blend_fwd"], launches[mode]["preprocess_fwd"]
+                ) != (frames, frames):
+            fail(f"turntable {mode}: K1 and the preprocess forward launched "
+                 f"{launches[mode]} times for {frames} frames")
 
         # Frame 0 as the app renders it, through K1 and through its plain
         # version (the render's blend_fwd looked up at call time).
@@ -2897,7 +3133,9 @@ def turntable_path(root: Path, model_dir: Path, mesh_ply: Path,
         rep, _ = kernel_phase(g, cam, 256, cap, 1, drop_ok=True)
         print(f"[smoke] turntable-{mode} K1 blend_fwd (cap {cap}): "
               f"{json.dumps(rep)}")
-        reports[mode] = {"blend_fwd": rep}
+        reports[mode] = {"blend_fwd": rep, **preprocess_phase(
+            f"turntable-{mode}", g, cam, 0 if mode == "mesh" else 3,
+            backward=False)}
         del g
     return reports, launches
 
@@ -2969,7 +3207,8 @@ def main(argv=None) -> None:
                 device=dev).train_cameras[0]
     cap = max(8 * g.capacity // pipe.chunk * pipe.chunk, 4 * pipe.chunk)
     # The material-stage package's width, V=16 (feature_count 9).
-    render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9)
+    render_kernels = kernel_phases("render-full", g, cam, pipe.chunk, cap, 9,
+                                   g.max_sh_degree)
 
     # --- phase 4: the render app with DTU's mesh preset --------------------------
     mark("phase 4")
@@ -2987,9 +3226,11 @@ def main(argv=None) -> None:
     for s in stats:
         if s["dropped"] != 0 or not s["finite"]:
             fail(f"view {s['view']}: dropped {s['dropped']}, finite {s['finite']}")
-    if launches["blend_fwd"] != VIEWS + regrowths:
-        fail(f"blend_fwd launched {launches['blend_fwd']} times on the path, "
-             f"expected {VIEWS} views + {regrowths} regrowths")
+    if (launches["blend_fwd"], launches["preprocess_fwd"]) != (
+            VIEWS + regrowths,) * 2 or launches["preprocess_bwd"]:
+        fail(f"render app launches {launches}, expected K1 and the "
+             f"preprocess forward {VIEWS} views + {regrowths} regrowths "
+             f"each, no backward")
     for kind in ("render", "gt", "normal", "depth"):
         files = sorted((model_dir / "train" / "ours_1" / kind).iterdir())
         if len(files) != VIEWS:
@@ -3069,6 +3310,10 @@ def main(argv=None) -> None:
                     if it > DENSIFY_FROM and it % DENSIFY_EVERY == 0)
     want = {"blend_fwd": n_warm + 2 * n_geo + EVAL_VIEWS,
             "blend_bwd": n_warm + 2 * n_geo, "blend_obs": TRAIN_VIEWS}
+    # The preprocess pair: forward once per render and per trim view,
+    # backward once per differentiated render.
+    want["preprocess_fwd"] = want["blend_fwd"] + want["blend_obs"]
+    want["preprocess_bwd"] = want["blend_bwd"]
     m = trainer.last_metrics
     loss = float(m["loss"])
     snap = train_model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
@@ -3166,7 +3411,7 @@ def main(argv=None) -> None:
     # chunk and instance cap.
     train_kernels = kernel_phases(
         "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
-        trainer.pipe.chunk, trainer.instance_cap, 5)
+        trainer.pipe.chunk, trainer.instance_cap, 5, trainer.active_sh_degree)
 
     # --- phase 6a: the viewer bridge with train-full's Gaussians -----------
     mark("phase 6a")
@@ -3196,7 +3441,7 @@ def main(argv=None) -> None:
     # trainer's instance cap.
     quality_kernels = kernel_phases(
         "quality-smoke", gate.gaussians, gate.scene.train_cameras[0],
-        gate.pipe.chunk, gate.instance_cap, 5)
+        gate.pipe.chunk, gate.instance_cap, 5, gate.active_sh_degree)
 
     # --- phase 9: the material gate at smoke scale ---------------------------
     mark("phase 9")
@@ -3241,40 +3486,57 @@ def main(argv=None) -> None:
                                   shiny["cap"], dev)
     shiny_launches = {name: shiny["by_width"].get((name, 16), 0)
                       for name in ("blend_fwd", "blend_bwd")}
+    shiny_launches.update({name: shiny["launches"][name]
+                           for name in ("preprocess_fwd", "preprocess_bwd")})
 
     # One record per kernel and path, each from the kernel phase run at that
     # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
     # quality cell are checked above, but their paths do not launch them
     # (the render app takes no backward; the gate's trim would fire at
-    # 1,000), so they have no record here. The material and shiny cells'
-    # records are K1 and K2 at V=16, with their V=16 launches; the runner
-    # cells' launches are summed over the apps each runner started.
-    replaces = {"blend_fwd": 125, "blend_bwd": 322, "blend_obs": 227}
+    # 1,000), so they have no record here; nor has the preprocess backward
+    # at the render cell. The material and shiny cells' records are K1 and
+    # K2 at V=16, with their V=16 launches; the runner cells' launches are
+    # summed over the apps each runner started. The sp cells' preprocess
+    # runs on render-full's Gaussians and view, so their records carry
+    # render-full's preprocess reports. The preprocess pair replaces no
+    # kernel: the JAX package computes it in XLA code (project and the
+    # Gaussians' activations).
+    pre = lambda *names: {k: render_kernels[k] for k in names}
+    replaces = {"blend_fwd": "blend_pallas.py:125",
+                "blend_bwd": "blend_pallas.py:322",
+                "blend_obs": "blend_pallas.py:227",
+                "preprocess_fwd": "projection.py:132",
+                "preprocess_bwd": "projection.py:132"}
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
             ("train-opaque-cut", cut_kernels, cut_launches),
-            ("render-full", {"blend_fwd": render_kernels["blend_fwd"]},
-             launches),
+            ("render-full", pre("blend_fwd", "preprocess_fwd"), launches),
             ("quality-smoke", {k: quality_kernels[k]
-                               for k in ("blend_fwd", "blend_bwd")},
+                               for k in ("blend_fwd", "blend_bwd",
+                                         "preprocess_fwd", "preprocess_bwd")},
              q_launches),
             ("train-material", material_kernels, mat_launches),
-            ("dp-train", {k: dp_kernels[k] for k in ("blend_fwd",
-                                                     "blend_bwd")},
+            ("dp-train", {k: dp_kernels[k]
+                          for k in ("blend_fwd", "blend_bwd",
+                                    "preprocess_fwd", "preprocess_bwd")},
              dp_launches),
-            ("sp-render", sp_kernels["sp-render"], sp_launches["sp-render"]),
-            ("sp-grad", sp_kernels["sp-grad"], sp_launches["sp-grad"]),
+            ("sp-render", {**sp_kernels["sp-render"], **pre("preprocess_fwd")},
+             sp_launches["sp-render"]),
+            ("sp-grad", {**sp_kernels["sp-grad"],
+                         **pre("preprocess_fwd", "preprocess_bwd")},
+             sp_launches["sp-grad"]),
             ("dtu-protocol", dtu_kernels, dtu["launches"]),
             ("turntable-model", tt_kernels["model"], tt_launches["model"]),
             ("turntable-mesh", tt_kernels["mesh"], tt_launches["mesh"]),
             ("tnt-protocol", tnt_kernels, tnt["launches"]),
             ("shiny-protocol", shiny_kernels, shiny_launches)):
         for name, rep in reports.items():
+            source = name if name.startswith("blend") else "preprocess"
             records.append({
                 "name": name, "cell": cell, "route": "cuda",
-                "source": f"gs2m_tpu_torch/csrc/{name}.cu",
-                "replaces": f"gs2m_tpu/ops/blend_pallas.py:{replaces[name]}",
+                "source": f"gs2m_tpu_torch/csrc/{source}.cu",
+                "replaces": f"gs2m_tpu/ops/{replaces[name]}",
                 "launches": path_launches[name],
                 "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
                 "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],

@@ -17,7 +17,8 @@ feature_count staging: 1 (RGB warmup) / 5 (+distance+normal, geometry) /
 9 (+albedo+roughness, material) / +1 when blending metallic.
 
 Differentiable in the Gaussians' parameters through torch autograd (the
-blend's backward is kernel K2 on CUDA tensors). Densification statistics
+per-Gaussian preprocess is one kernel pair and the blend's backward is
+kernel K2 on CUDA tensors). Densification statistics
 flow through the `m2d_sink` / `m2d_abs_sink` zero tensors, whose gradients
 the trainer reads. `count_observed` is the trim's observe-only pass.
 `term_cut` / `expand_cap` bin with the termination cut (ops/binning.py), as
@@ -30,9 +31,8 @@ import torch
 from gs2m_tpu_torch.core.camera import Camera
 from gs2m_tpu_torch.core.gaussians import Gaussians
 from gs2m_tpu_torch.ops.normals import normal_from_depth_image
-from gs2m_tpu_torch.ops.projection import project
-from gs2m_tpu_torch.ops.rasterize import (RasterOut, build_features,
-                                          observe_from_projected,
+from gs2m_tpu_torch.ops.preprocess import preprocess
+from gs2m_tpu_torch.ops.rasterize import (RasterOut, observe_from_projected,
                                           rasterize_from_projected)
 from gs2m_tpu_torch.utils import spans
 
@@ -63,11 +63,9 @@ def render(
 ) -> dict:
     feature_count = feature_count_for(geometry_stage, material_stage,
                                       blend_metallic)
-    opacities = gaussians.get_opacity[:, 0]
-    normals = gaussians.get_normals(camera.cam_center)
-    features = build_features(gaussians, camera, z_depth=z_depth,
-                              normals=normals)
-    proj = project(gaussians, camera, active_sh_degree, opacities, tile=tile)
+    opacities, features, proj = preprocess(gaussians, camera,
+                                           active_sh_degree, tile=tile,
+                                           z_depth=z_depth)
     out = rasterize_from_projected(
         proj, opacities, features, bg, camera, feature_count=feature_count,
         tile=tile, chunk=chunk, instance_cap=instance_cap,
@@ -86,9 +84,8 @@ def count_observed(gaussians: Gaussians, camera: Camera, tile: int = 16,
     cost: a color-free projection and the geometry-only blend sweep (K3).
     Counts equal render(...)["observe"]."""
     with torch.no_grad():
-        opac = gaussians.get_opacity[:, 0]
-        proj = project(gaussians, camera, 0, opac, tile=tile,
-                       with_colors=False)
+        opac, _, proj = preprocess(gaussians, camera, 0, tile=tile,
+                                   with_colors=False)
         return observe_from_projected(proj, opac, camera, tile=tile,
                                       chunk=chunk, instance_cap=instance_cap,
                                       term_cut=term_cut,

@@ -163,14 +163,21 @@ ALPHA_MIN = float(np.float32(1.0 / 255.0))
 RETIRE_MARGIN = 1e-4
 LOG_RETIRE = float(np.float32(LOG_HALF - RETIRE_MARGIN))
 
-# Launches of each kernel of this module, keyed by (kernel, value width V;
-# 0 for K3, which blends no value rows): one per launch, nowhere else.
+# Launches of the port's kernels, keyed by (kernel, value width V; 0 for K3,
+# which blends no value rows, and for the preprocess pair of
+# ops/preprocess.py, "preprocess_fwd" and "preprocess_bwd"): one per launch,
+# nowhere else.
 LAUNCHES: Counter = Counter()
 
 
+KERNELS = ("blend_fwd", "blend_bwd", "blend_obs", "preprocess_fwd",
+           "preprocess_bwd")
+
+
 def launch_counts() -> dict[str, int]:
-    """LAUNCHES summed over the value widths, by kernel."""
-    out = dict.fromkeys(("blend_fwd", "blend_bwd", "blend_obs"), 0)
+    """LAUNCHES summed over the value widths, by kernel (every kernel of
+    KERNELS, 0 where it did not launch)."""
+    out = dict.fromkeys(KERNELS, 0)
     for (name, _), n in LAUNCHES.items():
         out[name] += n
     return out

@@ -42,9 +42,9 @@ from gs2m_tpu_torch.core.camera import Camera
 from gs2m_tpu_torch.core.gaussians import Gaussians
 from gs2m_tpu_torch.models import losses as L
 from gs2m_tpu_torch.ops.normals import normal_from_depth_image
-from gs2m_tpu_torch.ops.projection import crop_projected, project
-from gs2m_tpu_torch.ops.rasterize import (RasterOut, build_features,
-                                          rasterize_from_projected)
+from gs2m_tpu_torch.ops.preprocess import preprocess
+from gs2m_tpu_torch.ops.projection import crop_projected
+from gs2m_tpu_torch.ops.rasterize import RasterOut, rasterize_from_projected
 from gs2m_tpu_torch.ops.ssim import ssim_map
 
 SSIM_HALO = 5  # the 11x11 SSIM window's radius (ops/ssim.py)
@@ -97,10 +97,8 @@ class _Bands:
             if params is not None:
                 g = g.with_params({k: v.to(dev) for k, v in params.items()})
             cam = to_device(camera, dev)
-            op = g.get_opacity[:, 0]
-            per_dev[dev] = (g, cam, bg.to(dev), op,
-                            project(g, cam, active_sh_degree, op, tile=tile),
-                            build_features(g, cam))
+            op, feats, proj = preprocess(g, cam, active_sh_degree, tile=tile)
+            per_dev[dev] = (g, cam, bg.to(dev), op, proj, feats)
         self.per_dev = per_dev
         self.outs = []
         h = self.local_h

@@ -13,7 +13,11 @@ parallel paths on the card: a 4-band render against the full frame and
 the one-rank data-parallel step against the single-view step; and the
 binning termination cut on the card: its layout equal to the CPU's, K1 on
 the cut layout bit-equal to K1 on the base layout (K2's gradients at the
-gate), and cut train steps that never sync with the host.
+gate), and cut train steps that never sync with the host; and the
+per-Gaussian preprocess pair (csrc/preprocess.cu) against the eager chain
+on the card: forward outputs (integers equal) on the CPU tests' edge scene,
+a small scene and the benchmark's 2^19-row state, backward at the gate,
+and its launches per train step.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -636,3 +640,172 @@ def test_mesh_path_on_card_matches_cpu(cuda, bounds):
     assert torch.equal(f, ref[5]) and f.shape[0] > 1000
     torch.testing.assert_close(v, ref[4], rtol=0, atol=1e-6)
     torch.testing.assert_close(c, ref[6], rtol=0, atol=1e-6)
+
+
+# --- the per-Gaussian preprocess kernel pair (ops/preprocess.py) -------------
+
+PRE_FLOAT = ("opacities", "features", "means2d", "depths", "conics", "colors")
+PRE_INT = ("radii", "rect_min", "rect_max", "tiles_touched", "valid")
+
+
+def to_card(g: Gaussians, device) -> Gaussians:
+    import dataclasses
+
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name).to(device) for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
+
+
+def bench_state(device):
+    """The benchmark's geometry cell state (2^19 rows, 300k alive, SH
+    degree 3) and one of its cameras at the trained 800x600."""
+    import json
+    from pathlib import Path
+
+    from benchmark.cellkit.scene import arc_camera, make_state
+    from gs2m_tpu_torch.core.camera import focal2fov
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmark/configs/dtu-wo-brdf.json").read_text())
+    st = make_state(cfg, 2 ** 31 + 5, device)
+    p = st.params
+    g = Gaussians(xyz=p["xyz"], features_dc=p["f_dc"],
+                  features_rest=p["f_rest"], scaling=p["scaling"],
+                  rotation=p["rotation"], opacity=p["opacity"],
+                  albedo=p["albedo"], roughness=p["roughness"],
+                  metallic=p["metallic"], alive=st.alive,
+                  max_sh_degree=cfg["model"]["sh_degree"])
+    s = cfg["scene"]
+    R, T = arc_camera(0.3, s["camera_distance"], s["camera_height"])
+    cam = Camera.create(R, T, focal2fov(s["focal_px"], s["image_width"]),
+                        focal2fov(s["focal_px"], s["image_height"]),
+                        s["image_width"] // 2, s["image_height"] // 2,
+                        device=device)
+    return g, cam, cfg["model"]["sh_degree"]
+
+
+def pre_fields(out) -> dict:
+    return dict(zip(PRE_FLOAT[:2] + tuple(out.proj._fields),
+                    (out.opacities, out.features, *out.proj)))
+
+
+def assert_preprocess_matches(got, ref):
+    """The kernel's outputs against the plain path's on the card: integers
+    equal, floats at the render tests' gates."""
+    got, ref = pre_fields(got), pre_fields(ref)
+    for k in PRE_INT:
+        assert got[k].dtype == ref[k].dtype and torch.equal(got[k], ref[k]), (
+            k, int((got[k] != ref[k]).sum()))
+    for k in PRE_FLOAT:
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+def edge_case(deg, device):
+    # By module name: pytest puts tests/ on the path, and a `tests` package
+    # installed elsewhere may shadow the repository's.
+    from test_torch_preprocess import cpu_camera, edge_scene
+
+    cam = cpu_camera()
+    return to_card(edge_scene(deg), device), Camera(**{
+        k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+        for k, v in vars(cam).items()})
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_preprocess_fwd_matches_plain_path_on_edge_rows(cuda, deg):
+    """The forward kernel against the eager chain on the card, on the CPU
+    tests' edge scene (behind the near plane, det <= 0, dead slots, scale
+    ties, a colour at 0, the tanfov clamp), with and without colours."""
+    from gs2m_tpu_torch.ops import preprocess as pp
+
+    g, cam = edge_case(deg, cuda)
+    n0 = blend.LAUNCHES["preprocess_fwd", 0]
+    for kw in (dict(), dict(with_colors=False), dict(z_depth=True)):
+        assert_preprocess_matches(pp.preprocess(g, cam, deg, **kw),
+                                  pp.preprocess_plain(g, cam, deg, **kw))
+    assert blend.LAUNCHES["preprocess_fwd", 0] == n0 + 3
+
+
+@pytest.mark.parametrize("which", ["small", "bench"])
+def test_preprocess_fwd_matches_plain_path(cuda, which):
+    """At a small random scene and at the benchmark's 2^19-row state."""
+    from gs2m_tpu_torch.ops import preprocess as pp
+
+    if which == "small":
+        g = Gaussians.from_numpy(*scene(21, 4000, sh_degree=3), device=cuda)
+        cam, deg = camera(160, 120, cuda), 3
+    else:
+        g, cam, deg = bench_state(cuda)
+    with torch.no_grad():
+        got = pp.preprocess(g, cam, deg)
+        ref = pp.preprocess_plain(g, cam, deg)
+    assert bool(ref.proj.valid.any())
+    assert_preprocess_matches(got, ref)
+
+
+def pre_grads(fn, g, cam, deg, cot):
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in g.params_dict().items()}
+    out = fn(g.with_params(leaves), cam, deg)
+    loss = (torch.sum(out.opacities * cot[0]) + torch.sum(out.features * cot[1])
+            + torch.sum(out.proj.means2d * cot[2])
+            + torch.sum(out.proj.conics * cot[3])
+            + torch.sum(out.proj.colors * cot[4]))
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if d is None else d
+            for (k, v), d in zip(leaves.items(), got)}
+
+
+@pytest.mark.parametrize("case", ["edge0", "edge1", "edge2", "edge3", "bench"])
+def test_preprocess_bwd_matches_autograd_on_card(cuda, case):
+    """The backward kernel (through autograd of preprocess) against
+    autograd of the eager chain on the card, and against its plain twin,
+    at the distributional gate; one launch each way."""
+    from gs2m_tpu_torch.ops import preprocess as pp
+    from test_torch_preprocess import THIN
+
+    if case == "bench":
+        g, cam, deg = bench_state(cuda)
+    else:
+        deg = int(case[-1])
+        g, cam = edge_case(deg, cuda)
+    C = g.capacity
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cot = [torch.randn(C, *s, generator=gen, device=cuda)
+           for s in ((), (10,), (2,), (3,), (3,))]
+    if case != "bench":   # rounding noise there (test_torch_preprocess.cotangents)
+        cot[2][THIN] = 0.0
+        cot[3][THIN] = 0.0
+    n0 = (blend.LAUNCHES["preprocess_fwd", 0], blend.LAUNCHES["preprocess_bwd", 0])
+    got = pre_grads(pp.preprocess, g, cam, deg, cot)
+    assert (blend.LAUNCHES["preprocess_fwd", 0],
+            blend.LAUNCHES["preprocess_bwd", 0]) == (n0[0] + 1, n0[1] + 1)
+    ref = pre_grads(pp.preprocess_plain, g, cam, deg, cot)
+    twin = pp.preprocess_bwd_plain(g, cam, *cot, deg=deg)
+    for k, r in ref.items():
+        assert bool(torch.isfinite(got[k]).all()), k
+        for other in (r, twin[k]):
+            rep = grad_gate(got[k].cpu().numpy(), other.cpu().numpy(),
+                            tol=TOLERANCES.get(k, DEFAULT_TOL))
+            assert rep["pass"], (k, rep)
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])
+def test_preprocess_launches_per_step(cuda, tmp_path, material):
+    """One forward per render and one backward per differentiated render:
+    geometry steps 2 / 2 (the view and its nearest), material steps 3 / 2
+    (the nearby view's render is gradient-free)."""
+    trainer = small_trainer(cuda, tmp_path, material)
+    for _ in range(3):
+        trainer.train_step()
+    mv, rough = trainer.mv_active_count, trainer.rough_active_count
+    before = dict(blend.LAUNCHES)
+    trainer.train_step()
+    torch.cuda.synchronize()
+    assert trainer.mv_active_count == mv + 1
+    n = {k: blend.LAUNCHES[k, 0] - before.get((k, 0), 0)
+         for k in ("preprocess_fwd", "preprocess_bwd")}
+    if material:
+        assert trainer.rough_active_count == rough + 1
+    assert n == {"preprocess_fwd": 3 if material else 2, "preprocess_bwd": 2}

@@ -53,7 +53,9 @@ def test_port_has_its_modules():
                 # the benchmark harness
                 "apps/eval_dtu", "apps/run_dtu", "apps/report_dtu",
                 "apps/eval_tnt", "apps/convert_json", "apps/run_tnt",
-                "apps/run_shiny", "apps/run_glossy", "apps/vis_turntable"):
+                "apps/run_shiny", "apps/run_glossy", "apps/vis_turntable",
+                # the per-Gaussian preprocess kernel pair
+                "ops/preprocess"):
         assert f"gs2m_tpu_torch/{mod}.py" in names, mod
 
 
