@@ -11,7 +11,8 @@ output surface:
   dropped_expand () | aligned_demand () (the binning's expansion-cap
   overflow and aligned slots in use, which the trainer sizes its caps from)
   | num_instances () | num_kept () (port only: the binned instance count
-  and the instances the per-tile cull keeps, for reports)
+  and the instances the per-tile cull keeps, for reports; with the span
+  recorder on, the deepest tile's slots are counted too)
 
 feature_count staging: 1 (RGB warmup) / 5 (+distance+normal, geometry) /
 9 (+albedo+roughness, material) / +1 when blending metallic.
@@ -30,6 +31,7 @@ import torch
 
 from gs2m_tpu_torch.core.camera import Camera
 from gs2m_tpu_torch.core.gaussians import Gaussians
+from gs2m_tpu_torch.ops.binning import tile_slots_max
 from gs2m_tpu_torch.ops.normals import normal_from_depth_image
 from gs2m_tpu_torch.ops.preprocess import preprocess
 from gs2m_tpu_torch.ops.rasterize import (RasterOut, observe_from_projected,
@@ -138,10 +140,16 @@ def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
     }
     # Per render, for the span recorder (nothing while it is off): the
     # (tile, Gaussian) pairs the binning expands, those the per-tile cull
-    # keeps, and the chunk-aligned slots K1/K2 walk.
+    # keeps, and the chunk-aligned slots K1/K2 walk; and, computed only
+    # while it is on (a few launches), the slots of the deepest tile and
+    # the frame's tile count.
     spans.count("instances", out.num_instances)
     spans.count("kept_instances", out.num_kept)
     spans.count("aligned_slots", out.aligned_demand)
+    if spans.recording() and out.chunk_tile is not None:
+        spans.count("tile_slots_max",
+                    tile_slots_max(out.chunk_tile, out.tiles, out.chunk))
+        spans.count("tiles", out.tiles)
     if sobel_normal:
         pkg["sobel_map"] = render_normal_from_depth_map(
             camera, depth_map[0], bg, pkg["alpha_map"][0])

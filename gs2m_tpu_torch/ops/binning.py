@@ -159,6 +159,16 @@ def termination_kept(tile_sorted: torch.Tensor, seg_start: torch.Tensor,
     return ~crossed_all
 
 
+def tile_slots_max(chunk_tile: torch.Tensor, tiles: int,
+                   chunk: int) -> torch.Tensor:
+    """() int32: the most chunk-aligned slots any one tile holds in a
+    layout, from its (n_chunks,) tile per chunk (the dummy tile `tiles`
+    left out); on the device, with no sync."""
+    per_tile = torch.zeros(tiles + 1, dtype=I32, device=chunk_tile.device)
+    per_tile.index_add_(0, chunk_tile, torch.full_like(chunk_tile, chunk))
+    return per_tile[:tiles].amax()
+
+
 def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
                   instance_cap: int, chunk: int,
                   opacities: torch.Tensor, with_present: bool = True,

@@ -36,6 +36,12 @@ class RasterOut(NamedTuple):
     dropped_expand: torch.Tensor  # () int32 — the expansion-cap part of dropped
     aligned_demand: torch.Tensor  # () int32 — aligned slots in use
     num_kept: torch.Tensor  # () int32 — instances kept by the per-tile cull
+    # The layout's tile per chunk (T = the dummy tile), its tile count and
+    # its chunk size, for the span recorder's per-tile counter; None where
+    # a render has no one layout (the band-sharded renders).
+    chunk_tile: torch.Tensor | None = None
+    tiles: int = 0
+    chunk: int = 0
 
 
 def value_width(feature_count: int) -> int:
@@ -121,7 +127,9 @@ def rasterize_from_projected(
                      num_instances=binning.num_instances,
                      dropped_expand=binning.dropped_expand,
                      aligned_demand=binning.num_aligned,
-                     num_kept=binning.num_kept)
+                     num_kept=binning.num_kept,
+                     chunk_tile=binning.chunk_tile,
+                     tiles=binning.tile_nonempty.shape[0], chunk=chunk)
 
 
 def observe_from_projected(

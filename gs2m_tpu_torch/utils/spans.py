@@ -118,6 +118,12 @@ def set_step(step: int) -> None:
     _REC.step = step
 
 
+def recording() -> bool:
+    """Whether the recorder is on: a counter that costs launches to compute
+    is computed only then."""
+    return _REC.on
+
+
 def enable() -> None:
     rec = _REC
     if rec.spans is None:

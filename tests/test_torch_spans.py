@@ -237,11 +237,15 @@ def test_train_step_logs_one_span_set_with_its_counters(scene, monkeypatch):
     assert renders in (2, 3)                # main, nearest (+ nearby)
     assert n == {"step/forward": 1, "step/render": renders, "step/pbr": 1,
                  "step/backward": 1, "step/update": 2, "step/light": 1}
-    assert snap["counters"] == {
+    c = snap["counters"]
+    cam = scene.train_cameras[0]
+    tiles = -(-cam.height // 16) * -(-cam.width // 16)
+    assert c == {
         "instances": [float(p["num_instances"]) for p in pkgs],
         "kept_instances": [float(p["num_kept"]) for p in pkgs],
-        "aligned_slots": [float(p["aligned_demand"]) for p in pkgs]}
-    c = snap["counters"]
+        "aligned_slots": [float(p["aligned_demand"]) for p in pkgs],
+        "tile_slots_max": c["tile_slots_max"], "tiles": [float(tiles)] * renders}
+    assert all(0 < m <= a for m, a in zip(c["tile_slots_max"], c["aligned_slots"]))
     assert all(0 < k <= i for k, i in zip(c["kept_instances"], c["instances"]))
     assert all(k <= a for k, a in zip(c["kept_instances"], c["aligned_slots"]))
     assert snap["profiled"] == []
