@@ -3,6 +3,18 @@
 Builds every kernel from csrc/ (one nvcc per source, all at once), makes two
 synthetic full-width scenes from a seed with the port's own writers, and:
 
+  adam          csrc/adam.cu against the eager loop (train/optim.py::
+                adam_update_plain) on the same card tensors, nine groups of
+                2^19 and of 2^22 rows at SH degree 3 (dead rows, a group
+                without a gradient, -0.0 moments, an unaligned gradient): p,
+                m and v bit-equal after 3 steps, one launch a step; each
+                timed by CUDA events beside its bytes bound (28 B an
+                element). Every training path below also runs under an
+                AdamTap, which keeps the path's last update of each set of
+                groups (the material cell's light too) and holds the
+                kernel's result to the loop's on clones of its inputs; the
+                runner cells, whose apps run in subprocesses, hold it on
+                their snapshot's parameters (adam_model)
   render scene  500k Gaussians in the slab layout of bench.py, SH degree 3,
                 four 1600x1200 views, COLMAP sparse/0, a point_cloud snapshot
   kernel phase  on view 0's real binning (V=16): K1 (csrc/blend_fwd.cu), K2
@@ -860,6 +872,246 @@ def preprocess_phase(cell: str, g, cam, deg: int,
     return reports
 
 
+# The nine Adam groups' widths at SH degree 3: 64 floats a row.
+ADAM_WIDTHS = {"xyz": (3,), "f_dc": (1, 3), "f_rest": (15, 3),
+               "opacity": (1,), "scaling": (3,), "rotation": (4,),
+               "albedo": (3,), "roughness": (1,), "metallic": (1,)}
+
+
+def adam_case(rows: int, device, seed: int = 0, count: int = 0):
+    """The nine Adam groups of `rows` rows at SH degree 3, drawn from `seed`
+    on `device`, with the edges the kernel must round as the eager loop
+    does: the last quarter of the rows dead (zero gradients and moments),
+    metallic without a gradient, roughness's moments all -0.0, and xyz's
+    gradient one float past a 16-byte boundary (the wrapper copies it).
+    Returns (params, grads, AdamState at `count`, lrs), lrs(step) the LRs
+    of a step, which change from step to step."""
+    import torch
+
+    from gs2m_tpu_torch.core.config import OptimConfig
+    from gs2m_tpu_torch.train.optim import AdamState, group_lrs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    live = rows - rows // 4
+    opt = OptimConfig()
+    base_lrs = group_lrs(opt, 1.0, opt.position_lr_init)
+
+    def draw(shape, scale):
+        x = torch.randn(shape, generator=gen, device=device) * scale
+        x[live:] = 0.0
+        return x
+
+    params, grads, mu, nu = {}, {}, {}, {}
+    for k, w in ADAM_WIDTHS.items():
+        shape = (rows, *w)
+        params[k] = torch.randn(shape, generator=gen, device=device)
+        grads[k] = draw(shape, 1e-3)
+        mu[k] = draw(shape, 1e-4)
+        nu[k] = draw(shape, 1e-3) ** 2
+    grads["metallic"] = None
+    mu["roughness"].fill_(-0.0)
+    nu["roughness"].fill_(-0.0)
+    buf = torch.empty(grads["xyz"].numel() + 1, device=device)
+    buf[1:] = grads["xyz"].reshape(-1)
+    grads["xyz"] = buf[1:].view(rows, 3)
+    return (params, grads, AdamState(mu=mu, nu=nu, count=count),
+            lambda step: {k: lr * (1.0 + 0.25 * step)
+                          for k, lr in base_lrs.items()})
+
+
+def adam_clone(params: dict, grads: dict, state) -> tuple:
+    """Clones of an Adam update's inputs: (params, grads, AdamState)."""
+    from gs2m_tpu_torch.train.optim import AdamState
+
+    c = lambda d: {k: None if v is None else v.clone() for k, v in d.items()}
+    return c(params), c(grads), AdamState(mu=c(state.mu), nu=c(state.nu),
+                                          count=state.count)
+
+
+def adam_bits_differ(got: tuple, ref: tuple) -> dict:
+    """Elements whose bits differ, by "p.<group>", "m.<group>", "v.<group>",
+    between two (params, AdamState) pairs."""
+    import torch
+
+    bits = lambda x: x.reshape(-1).view(torch.int32)
+    return {f"{what}.{k}": int((bits(a[k]) != bits(b[k])).sum())
+            for what, a, b in (("p", got[0], ref[0]),
+                               ("m", got[1].mu, ref[1].mu),
+                               ("v", got[1].nu, ref[1].nu))
+            for k in a}
+
+
+def adam_times(params: dict, grads: dict, state, lrs: dict,
+               reps: int = 20) -> dict:
+    """csrc/adam.cu and the eager loop timed by CUDA events on one update's
+    inputs (each on its own clones; `reps` updates back to back per window,
+    per update), beside the kernel's bound, 28 B an element over HBM's
+    rate."""
+    from gs2m_tpu_torch.train import optim
+
+    p, g, s = adam_clone(params, grads, state)
+    q, h, t = adam_clone(params, grads, state)
+    rep = {"ms": time_ms(lambda: [optim.adam_update(p, g, s, lrs)
+                                  for _ in range(reps)], 5) / reps,
+           "plain_ms": time_ms(lambda: [optim.adam_update_plain(q, h, t, lrs)
+                                        for _ in range(reps)], 3) / reps}
+    rep.update(bound(28 * sum(x.numel() for x in params.values()), 0.0))
+    return rep
+
+
+def adam_phase(rows: int, seed: int = 0, reps: int = 20) -> dict:
+    """csrc/adam.cu against the eager loop (train/optim.py::
+    adam_update_plain) on adam_case's groups of `rows` rows, both on the
+    card: p, m and v bit-equal after 3 steps, one launch a step; then each
+    update timed (adam_times), and beside torch._fused_adam_ on the same
+    tensors (library_ms; the port never calls it)."""
+    import torch
+
+    from gs2m_tpu_torch.launches import LAUNCHES
+    from gs2m_tpu_torch.train import optim
+
+    dev = torch.device("cuda")
+    params, grads, state, lrs = adam_case(rows, dev, seed, count=15_090)
+    ref, _, ref_state = adam_clone(params, {}, state)
+    times = adam_times(params, grads, state, lrs(0), reps)
+    n0 = LAUNCHES["adam", 0]
+    for step in range(3):
+        optim.adam_update(params, grads, state, lrs(step))
+        optim.adam_update_plain(ref, grads, ref_state, lrs(step))
+    launched = LAUNCHES["adam", 0] - n0
+    differ = adam_bits_differ((params, state), (ref, ref_state))
+    rep = {"rows": rows, "elements": sum(v.numel() for v in params.values()),
+           "launches": launched, "bits_differ": sum(differ.values()),
+           "max_abs_err": max(float((params[k] - ref[k]).abs().max())
+                              for k in params), **times}
+    # The yardstick: PyTorch's own fused Adam over the same tensors, one LR
+    # (torch.optim.Adam(fused=True)'s call; other rounding, same bytes).
+    lib = [list(d.values()) for d in (ref, ref_state.mu, ref_state.nu)]
+    lib_grads = [torch.zeros_like(p) if grads[k] is None else grads[k]
+                 for k, p in ref.items()]
+    steps = [torch.ones((), device=dev) for _ in ref]
+    rep["library_ms"] = time_ms(lambda: [torch._fused_adam_(
+        lib[0], lib_grads, lib[1], lib[2], [], steps, lr=1e-3, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-15, amsgrad=False,
+        maximize=False) for _ in range(reps)], 3) / reps
+    print(f"[smoke] adam at {rows} rows: {json.dumps(rep)}")
+    if rep["bits_differ"] or launched != 3:
+        fail(f"adam kernel against the eager loop at {rows} rows: "
+             f"{ {k: n for k, n in differ.items() if n} }, launches "
+             f"{launched}, expected 3")
+    return rep
+
+
+class AdamTap:
+    """csrc/adam.cu held to the eager loop on a path's own updates. Armed (a
+    context manager), it stands in for adam_update where the trainer and the
+    light's update call it (train/trainer.py, pbr/render.py), counts each
+    set of groups' updates (the Gaussians' nine, keyed "xyz"; the light's,
+    "light") and their launches, and at call `keep[key]` of a set keeps
+    clones of what the path gave the kernel (parameters, gradients, moments,
+    step count, LRs) and of what the kernel made of them; it syncs nothing.
+    `reports()` then runs adam_update_plain on the kept inputs, compares p,
+    m and v bit for bit and times both (adam_times); it fails the smoke on
+    a difference, or where a kept call never came. `on_path` False marks a
+    tap that no path's run went through (adam_model's)."""
+
+    def __init__(self, cell: str, keep: dict, on_path: bool = True):
+        self.cell, self.keep, self.on_path = cell, keep, on_path
+        self.calls, self.launches, self.kept = {}, {}, {}
+
+    def __enter__(self):
+        from gs2m_tpu_torch.pbr import render as pbr_render
+        from gs2m_tpu_torch.train import trainer as trainer_mod
+
+        self.mods = (trainer_mod, pbr_render)
+        self.saved = [m.adam_update for m in self.mods]
+        for m in self.mods:
+            m.adam_update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.adam_update = f
+
+    def update(self, params, grads, state, lrs, *args, **kw):
+        from gs2m_tpu_torch.launches import LAUNCHES
+        from gs2m_tpu_torch.train import optim
+
+        key = next(iter(params))
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        n0 = LAUNCHES["adam", 0]
+        if n != self.keep.get(key):
+            out = optim.adam_update(params, grads, state, lrs, *args, **kw)
+        else:
+            before = adam_clone(params, grads, state)
+            out = optim.adam_update(params, grads, state, lrs, *args, **kw)
+            after = adam_clone(params, {}, state)
+            self.kept[key] = (before, (after[0], after[2]), dict(lrs), args,
+                              kw)
+        self.launches[key] = (self.launches.get(key, 0)
+                              + LAUNCHES["adam", 0] - n0)
+        return out
+
+    def reports(self) -> dict:
+        """Per set of groups: its rows, elements, updates and launches on the
+        path, the kept call, bits that differ, max |kernel - loop| and
+        adam_times."""
+        from gs2m_tpu_torch.train import optim
+
+        out = {}
+        for key, at in self.keep.items():
+            if key not in self.kept:
+                fail(f"{self.cell} adam tap: update {at} of {key} never came "
+                     f"({self.calls.get(key, 0)} updates)")
+            (params, grads, state), got, lrs, args, kw = self.kept.pop(key)
+            times = adam_times(params, grads, state, lrs)
+            optim.adam_update_plain(params, grads, state, lrs, *args, **kw)
+            differ = adam_bits_differ(got, (params, state))
+            rep = out[key] = {
+                "rows": next(iter(params.values())).shape[0],
+                "elements": sum(v.numel() for v in params.values()),
+                "updates": self.calls[key], "launches": self.launches[key],
+                "kept_call": at, "count": state.count,
+                "bits_differ": sum(differ.values()),
+                "max_abs_err": max(float((got[0][k] - params[k]).abs().max())
+                                   for k in params), "on_path": self.on_path,
+                **times}
+            print(f"[smoke] {self.cell} adam ({key}): {json.dumps(rep)}")
+            if rep["bits_differ"] or rep["launches"] != rep["updates"]:
+                fail(f"{self.cell} adam kernel against the eager loop on the "
+                     f"path's update {at} of {key}: "
+                     f"{ {k: n for k, n in differ.items() if n} }, launches "
+                     f"{rep['launches']} for {rep['updates']} updates")
+        return out
+
+
+def adam_model(cell: str, g, seed: int) -> dict:
+    """csrc/adam.cu against the eager loop at a trained model's shapes: one
+    update of its own parameters (cloned) at its rows and SH degree, with
+    gradients and moments drawn from `seed`, zero on its dead rows, at step
+    15,090; bits compared and both timed as AdamTap.reports does."""
+    import torch
+
+    from gs2m_tpu_torch.core.config import OptimConfig
+    from gs2m_tpu_torch.train import optim
+
+    gen = torch.Generator(device=g.xyz.device).manual_seed(seed)
+    live = lambda x: x * g.alive.reshape(-1, *[1] * (x.dim() - 1))
+    params = {k: v.detach().clone() for k, v in g.params_dict().items()}
+    grads = {k: live(torch.randn(v.shape, generator=gen, device=v.device)
+                     * 1e-3) for k, v in params.items()}
+    state = optim.AdamState(
+        mu={k: live(torch.randn(v.shape, generator=gen, device=v.device)
+                    * 1e-4) for k, v in params.items()},
+        nu={k: live(torch.randn(v.shape, generator=gen, device=v.device)
+                    * 1e-3) ** 2 for k, v in params.items()}, count=15_090)
+    opt = OptimConfig()
+    lrs = optim.group_lrs(opt, 1.0, opt.position_lr_init)
+    tap = AdamTap(cell, {"xyz": 1}, on_path=False)
+    tap.update(params, grads, state, lrs)
+    return tap.reports()["xyz"]
+
+
 def kernel_phases(cell: str, g, cam, chunk: int, cap: int,
                   feature_count: int, deg: int,
                   bin_kw: dict | None = None) -> dict:
@@ -1150,13 +1402,15 @@ def gate_probe():
 def quality_path(q_out: Path, card: str, gate_flags=()):
     """The quality gate at the JAX package's smoke scale, through
     apps.quality_gate.main, held to its limits and to the launches its
-    schedule implies; returns (its result, its trainer, the launches)."""
+    schedule implies; returns (its result, its trainer, the launches, the
+    AdamTap that kept its last update)."""
     from gs2m_tpu_torch.apps import quality_gate
     from gs2m_tpu_torch.ops import blend
 
     blend.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with gate_probe() as probe:
+    with gate_probe() as probe, AdamTap("quality-smoke",
+                                        {"xyz": QUALITY_EVALS[-1]}) as tap:
         q = quality_gate.main(["--out", str(q_out), "--production",
                                "--smoke", *gate_flags])
     q_wall = time.perf_counter() - t0
@@ -1188,6 +1442,7 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
     want_q["preprocess_fwd"] = (want_q["blend_fwd"] - q["views"]
                                 - probe["gt_overflows"] + want_q["blend_obs"])
     want_q["preprocess_bwd"] = want_q["blend_bwd"]
+    want_q["adam"] = it    # one update a step (csrc/adam.cu)
     print(f"[smoke] quality gate: {json.dumps(q)}")
     print(f"[smoke] quality gate (smoke scale): chamfer "
           f"{q['chamfer']['chamfer_mean']:.5f} (limit {CHAMFER_MAX}), test "
@@ -1210,7 +1465,7 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
              f"checkpoints {[c.name for c in q_ckpts if c.is_file()]}")
     if q_launches != want_q:
         fail(f"quality gate launches {q_launches}, expected {want_q}")
-    return q, gate, q_launches
+    return q, gate, q_launches, tap
 
 
 def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
@@ -1238,15 +1493,20 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
     blend.LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mt = train_app.main(mat_argv + ["-m", str(model),
-                                    "--checkpoint_iterations",
-                                    str(CHECKPOINTS[0]),
-                                    "--profile_iterations", *map(str, PROFILE)])
+    n_warm, n_mat = GEOMETRY_FROM, TRAIN_ITERS - GEOMETRY_FROM
+    # The last update of the Gaussians and of the light is kept for the
+    # kernel against the eager loop (its clones count in app_peak).
+    with AdamTap("train-material", {"xyz": TRAIN_ITERS,
+                                    "light": n_mat}) as tap:
+        mt = train_app.main(mat_argv + ["-m", str(model),
+                                        "--checkpoint_iterations",
+                                        str(CHECKPOINTS[0]),
+                                        "--profile_iterations",
+                                        *map(str, PROFILE)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     app_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(blend.LAUNCHES)
-    n_warm, n_mat = GEOMETRY_FROM, TRAIN_ITERS - GEOMETRY_FROM
     # Warmup: K1 and K2 at V=8 once a step. Material steps: K1 at V=16 for
     # the view and its nearest, K1 at V=8 for the nearby view when the view
     # has one (the roughness term; skipped otherwise), K2 at V=16 for the
@@ -1260,6 +1520,8 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
     want["preprocess_fwd", 0] = (want["blend_fwd", 8]
                                  + want["blend_fwd", 16])
     want["preprocess_bwd", 0] = want["blend_bwd", 8] + want["blend_bwd", 16]
+    # Adam once a step, and once more for the light in a material step.
+    want["adam", 0] = n_warm + 2 * n_mat
     m = mt.last_metrics
     light0 = mt.pbr_fns["init_light"]()
     print(f"[smoke] material train app: {TRAIN_ITERS} iterations ({n_warm} "
@@ -1353,11 +1615,12 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
         fail(f"train-material kernels at V={k1['V']}/{k2['V']}, not 16")
     pre = preprocess_phase("train-material", mt.gaussians,
                            mt.scene.train_cameras[0], mt.active_sh_degree)
-    return ({"blend_fwd": k1, "blend_bwd": k2, **pre},
+    return ({"blend_fwd": k1, "blend_bwd": k2, **pre, "adam": tap.reports()},
             {"blend_fwd": launches["blend_fwd", 16],
              "blend_bwd": launches["blend_bwd", 16],
              "preprocess_fwd": launches["preprocess_fwd", 0],
-             "preprocess_bwd": launches["preprocess_bwd", 0]})
+             "preprocess_bwd": launches["preprocess_bwd", 0],
+             "adam": launches["adam", 0]})
 
 
 def material_gate_path(out: Path, card: str) -> dict:
@@ -1479,7 +1742,10 @@ def dp_worker(rank: int, out: Path, train_dir: Path, full: bool) -> None:
 
     blend.LAUNCHES.clear()
     t0 = time.perf_counter()
-    trainer = train_app.main(dp_argv(train_dir, out / "model"))
+    # Rank 0's last update is kept for the kernel against the eager loop.
+    keep = {"xyz": TRAIN_ITERS} if full and rank == 0 else {}
+    with AdamTap("dp-train", keep) as tap:
+        trainer = train_app.main(dp_argv(train_dir, out / "model"))
     torch.cuda.synchronize()
     report["app_s"] = time.perf_counter() - t0
     report["launches"] = blend.launch_counts()
@@ -1534,6 +1800,7 @@ def dp_worker(rank: int, out: Path, train_dir: Path, full: bool) -> None:
             "dp-train", trainer.gaussians, trainer.scene.train_cameras[0],
             trainer.pipe.chunk, trainer.instance_cap, 5,
             trainer.active_sh_degree)
+        report["kernels"]["adam"] = tap.reports()
     (out / f"rank{rank}.json").write_text(json.dumps(report))
     print(f"[smoke] dp worker {rank} done", flush=True)
 
@@ -1636,6 +1903,7 @@ def dp_path(root: Path, train_dir: Path, card: str, dev, geo_ms: float):
     # The preprocess pair once per render and once per differentiated one.
     want["preprocess_fwd"] = want["blend_fwd"]
     want["preprocess_bwd"] = want["blend_bwd"]
+    want["adam"] = TRAIN_ITERS    # one update a step
     mean = one_process_mean_digest(train_dir, [r["first_step"] for r in first],
                                    dev)
     print(f"[smoke] dp-train: {DP_RANKS} ranks ({r0['backend']}, "
@@ -1847,9 +2115,9 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
              "one-card assembly")
     if grad_launches != {"blend_fwd": SP_BANDS, "blend_bwd": SP_BANDS,
                          "blend_obs": 0, "preprocess_fwd": 1,
-                         "preprocess_bwd": 1}:
+                         "preprocess_bwd": 1, "adam": 0}:
         fail(f"sp-grad launches {grad_launches}, expected {SP_BANDS} each of "
-             f"K1 and K2 and one each of the preprocess pair")
+             f"K1 and K2, one each of the preprocess pair and no update")
     del g_full, g_sp, leaves
 
     # One band's shapes: band 1 (rows 304..607 at 1200 rows).
@@ -2144,10 +2412,11 @@ def cut_path(train_dir: Path, card: str, dev):
     blend.LAUNCHES.clear()
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     caps = []
-    for _ in range(CUT_STEPS):
-        m = tr.train_step()
-        dropped = torch.maximum(dropped, m["dropped"])
-        caps.append((tr.iteration, tr.instance_cap, tr.expand_cap))
+    with AdamTap("train-opaque-cut", {"xyz": CUT_STEPS}) as tap:
+        for _ in range(CUT_STEPS):
+            m = tr.train_step()
+            dropped = torch.maximum(dropped, m["dropped"])
+            caps.append((tr.iteration, tr.instance_cap, tr.expand_cap))
     counts, trim_drop = make_observe_counter(
         tr.scene, tr.pipe, tr.instance_cap, term_cut=True,
         expand_cap=tr.expand_cap)(tr.gaussians)
@@ -2155,7 +2424,8 @@ def cut_path(train_dir: Path, card: str, dev):
     launches = blend.launch_counts()
     want = {"blend_fwd": 2 * CUT_STEPS, "blend_bwd": 2 * CUT_STEPS,
             "blend_obs": TRAIN_VIEWS, "preprocess_fwd": 2 * CUT_STEPS
-            + TRAIN_VIEWS, "preprocess_bwd": 2 * CUT_STEPS}
+            + TRAIN_VIEWS, "preprocess_bwd": 2 * CUT_STEPS,
+            "adam": CUT_STEPS}
     print(f"[smoke] train-opaque-cut trainer: iterations {CUT_FROM + 1}.."
           f"{tr.iteration} with the cut, caps (iteration, instance, expand) "
           f"{caps}; last loss {float(m['loss']):.5f}, dropped {int(dropped)}, "
@@ -2171,8 +2441,9 @@ def cut_path(train_dir: Path, card: str, dev):
              f"{expand_cap} -> {tr.expand_cap}")
     if launches != want:
         fail(f"train-opaque-cut launches {launches}, expected {want}")
+    adam = tap.reports()
 
-    reports = cut_layout_phase(tr, base_cap, card)
+    reports = {**cut_layout_phase(tr, base_cap, card), "adam": adam}
     cut_step_turns(tr, base_cap, card)
     return reports, launches
 
@@ -2545,7 +2816,9 @@ def model_kernels(cell: str, model_dir: Path, feature_count: int, cap: int,
     """K1 and K2 against their plain versions at a trained model's shapes:
     its last snapshot on its scene's first train view, at its training
     resolution, chunk and `cap`, the instance cap its train app ended
-    with."""
+    with; the preprocess pair there, and Adam on the snapshot's parameters
+    (adam_model: the runner's train app runs in a subprocess, whose updates
+    no AdamTap sees)."""
     from gs2m_tpu_torch.core.config import load_cfg_args
     from gs2m_tpu_torch.core.gaussians import Gaussians
     from gs2m_tpu_torch.data.ply import load_gaussian_ply
@@ -2566,7 +2839,8 @@ def model_kernels(cell: str, model_dir: Path, feature_count: int, cap: int,
     k2 = k2_phase(ctx)
     print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
     return {"blend_fwd": k1, "blend_bwd": k2,
-            **preprocess_phase(cell, g, cam, g.max_sh_degree)}
+            **preprocess_phase(cell, g, cam, g.max_sh_degree),
+            "adam": {"xyz": adam_model(cell, g, 11)}}
 
 
 def make_dtu_official(root: Path, scan: int, seed: int, scale: float,
@@ -3188,6 +3462,11 @@ def main(argv=None) -> None:
     print(f"[smoke] built {sorted(map(str, libs))} in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # The Adam kernel against the eager loop, and timed, at the DTU and TnT
+    # cells' rows (the paths' records hold it on their own updates).
+    for e in (19, 22):
+        adam_phase(1 << e, args.seed)
+
     # --- phase 2: scene -------------------------------------------------------
     root = HERE / "build" / "smoke"
     shutil.rmtree(root, ignore_errors=True)
@@ -3293,10 +3572,11 @@ def main(argv=None) -> None:
             "--quiet"]
     blend.LAUNCHES.clear()
     t0 = time.perf_counter()
-    trainer = train_app.main(
-        argv + ["-m", str(train_model),
-                "--checkpoint_iterations", *map(str, CHECKPOINTS),
-                "--profile_iterations", *map(str, PROFILE)])
+    with AdamTap("train-full", {"xyz": TRAIN_ITERS}) as train_tap:
+        trainer = train_app.main(
+            argv + ["-m", str(train_model),
+                    "--checkpoint_iterations", *map(str, CHECKPOINTS),
+                    "--profile_iterations", *map(str, PROFILE)])
     counts, trim_drop = make_observe_counter(trainer.scene, trainer.pipe,
                                              trainer.instance_cap)(
         trainer.gaussians)
@@ -3314,6 +3594,7 @@ def main(argv=None) -> None:
     # backward once per differentiated render.
     want["preprocess_fwd"] = want["blend_fwd"] + want["blend_obs"]
     want["preprocess_bwd"] = want["blend_bwd"]
+    want["adam"] = TRAIN_ITERS    # one update a step
     m = trainer.last_metrics
     loss = float(m["loss"])
     snap = train_model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
@@ -3412,6 +3693,7 @@ def main(argv=None) -> None:
     train_kernels = kernel_phases(
         "train-full", trainer.gaussians, trainer.scene.train_cameras[0],
         trainer.pipe.chunk, trainer.instance_cap, 5, trainer.active_sh_degree)
+    train_kernels["adam"] = train_tap.reports()
 
     # --- phase 6a: the viewer bridge with train-full's Gaussians -----------
     mark("phase 6a")
@@ -3432,7 +3714,7 @@ def main(argv=None) -> None:
 
     # --- phase 7: the quality gate at the JAX package's smoke scale ---------
     mark("phase 7")
-    q, gate, q_launches = quality_path(root / "quality", card)
+    q, gate, q_launches, q_tap = quality_path(root / "quality", card)
 
     # --- phase 8: the kernels at the shapes the quality path gives them ----
     mark("phase 8")
@@ -3442,6 +3724,7 @@ def main(argv=None) -> None:
     quality_kernels = kernel_phases(
         "quality-smoke", gate.gaussians, gate.scene.train_cameras[0],
         gate.pipe.chunk, gate.instance_cap, 5, gate.active_sh_degree)
+    quality_kernels["adam"] = q_tap.reports()
 
     # --- phase 9: the material gate at smoke scale ---------------------------
     mark("phase 9")
@@ -3487,7 +3770,8 @@ def main(argv=None) -> None:
     shiny_launches = {name: shiny["by_width"].get((name, 16), 0)
                       for name in ("blend_fwd", "blend_bwd")}
     shiny_launches.update({name: shiny["launches"][name]
-                           for name in ("preprocess_fwd", "preprocess_bwd")})
+                           for name in ("preprocess_fwd", "preprocess_bwd",
+                                        "adam")})
 
     # One record per kernel and path, each from the kernel phase run at that
     # path's own shapes. K2 and K3 at the render cell (V=16) and K3 at the
@@ -3500,13 +3784,19 @@ def main(argv=None) -> None:
     # runs on render-full's Gaussians and view, so their records carry
     # render-full's preprocess reports. The preprocess pair replaces no
     # kernel: the JAX package computes it in XLA code (project and the
-    # Gaussians' activations).
+    # Gaussians' activations); nor does Adam (its optimiser is XLA code).
+    # Adam has one record per set of groups a training path updates (the
+    # material cell's light as "<cell>-light"): held on the path's own kept
+    # update (AdamTap), its launches the tap's count of them, which must add
+    # up to the path's; the runner cells' on their snapshot (adam_model),
+    # their launches the path's.
     pre = lambda *names: {k: render_kernels[k] for k in names}
-    replaces = {"blend_fwd": "blend_pallas.py:125",
-                "blend_bwd": "blend_pallas.py:322",
-                "blend_obs": "blend_pallas.py:227",
-                "preprocess_fwd": "projection.py:132",
-                "preprocess_bwd": "projection.py:132"}
+    replaces = {"blend_fwd": "ops/blend_pallas.py:125",
+                "blend_bwd": "ops/blend_pallas.py:322",
+                "blend_obs": "ops/blend_pallas.py:227",
+                "preprocess_fwd": "ops/projection.py:132",
+                "preprocess_bwd": "ops/projection.py:132",
+                "adam": "train/optim.py:42"}
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
@@ -3514,12 +3804,14 @@ def main(argv=None) -> None:
             ("render-full", pre("blend_fwd", "preprocess_fwd"), launches),
             ("quality-smoke", {k: quality_kernels[k]
                                for k in ("blend_fwd", "blend_bwd",
-                                         "preprocess_fwd", "preprocess_bwd")},
+                                         "preprocess_fwd", "preprocess_bwd",
+                                         "adam")},
              q_launches),
             ("train-material", material_kernels, mat_launches),
             ("dp-train", {k: dp_kernels[k]
                           for k in ("blend_fwd", "blend_bwd",
-                                    "preprocess_fwd", "preprocess_bwd")},
+                                    "preprocess_fwd", "preprocess_bwd",
+                                    "adam")},
              dp_launches),
             ("sp-render", {**sp_kernels["sp-render"], **pre("preprocess_fwd")},
              sp_launches["sp-render"]),
@@ -3531,17 +3823,29 @@ def main(argv=None) -> None:
             ("turntable-mesh", tt_kernels["mesh"], tt_launches["mesh"]),
             ("tnt-protocol", tnt_kernels, tnt["launches"]),
             ("shiny-protocol", shiny_kernels, shiny_launches)):
-        for name, rep in reports.items():
-            source = name if name.startswith("blend") else "preprocess"
+        rows = [(name, cell, rep, path_launches[name])
+                for name, rep in reports.items() if name != "adam"]
+        adam = reports.get("adam", {})
+        if adam and all(r["on_path"] for r in adam.values()):
+            tapped = sum(r["launches"] for r in adam.values())
+            if tapped != path_launches["adam"]:
+                fail(f"{cell}: the adam tap counted {tapped} launches, the "
+                     f"path {path_launches['adam']}")
+        for key, rep in adam.items():
+            rows.append(("adam", cell if key == "xyz" else f"{cell}-{key}",
+                         rep, rep["launches"] if rep["on_path"]
+                         else path_launches["adam"]))
+        for name, rec_cell, rep, n in rows:
+            source = ("preprocess" if name.startswith("preprocess")
+                      else name)
             records.append({
-                "name": name, "cell": cell, "route": "cuda",
+                "name": name, "cell": rec_cell, "route": "cuda",
                 "source": f"gs2m_tpu_torch/csrc/{source}.cu",
-                "replaces": f"gs2m_tpu/ops/{replaces[name]}",
-                "launches": path_launches[name],
-                "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
-                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"], "library_ms": None,
-                "V": rep.get("V")})
+                "replaces": f"gs2m_tpu/{replaces[name]}",
+                "launches": n, "max_abs_err": rep["max_abs_err"],
+                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "library_ms": None, "V": rep.get("V")})
     print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -137,19 +137,17 @@ package's grad gate (blend_pallas.py:574-589). Deterministic: no atomics.
 """
 from __future__ import annotations
 
-import atexit
 import ctypes
 import functools
-import json
 import math
-import os
-import sys
-from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+# The port's launch counter, re-exported: K1-K3 count their launches here.
+from gs2m_tpu_torch.launches import (KERNELS, LAUNCH_LOG_ENV,  # noqa: F401
+                                     LAUNCHES, launch_counts)
 from gs2m_tpu_torch.ops.binning import Binning, num_tiles
 
 # f32 thresholds, rounded once in numpy so the kernel and the plain version
@@ -162,43 +160,6 @@ ALPHA_MIN = float(np.float32(1.0 / 255.0))
 # the f32 rounding it covers).
 RETIRE_MARGIN = 1e-4
 LOG_RETIRE = float(np.float32(LOG_HALF - RETIRE_MARGIN))
-
-# Launches of the port's kernels, keyed by (kernel, value width V; 0 for K3,
-# which blends no value rows, and for the preprocess pair of
-# ops/preprocess.py, "preprocess_fwd" and "preprocess_bwd"): one per launch,
-# nowhere else.
-LAUNCHES: Counter = Counter()
-
-
-KERNELS = ("blend_fwd", "blend_bwd", "blend_obs", "preprocess_fwd",
-           "preprocess_bwd")
-
-
-def launch_counts() -> dict[str, int]:
-    """LAUNCHES summed over the value widths, by kernel (every kernel of
-    KERNELS, 0 where it did not launch)."""
-    out = dict.fromkeys(KERNELS, 0)
-    for (name, _), n in LAUNCHES.items():
-        out[name] += n
-    return out
-
-
-# A process started with GS2M_LAUNCH_LOG=<file> in its environment appends,
-# at exit, one JSON line of its argv and its LAUNCHES to that file: how the
-# launches of apps that the benchmark runners (apps/run_*.py) start as
-# subprocesses are counted.
-LAUNCH_LOG_ENV = "GS2M_LAUNCH_LOG"
-
-
-def _append_launch_log(path: str) -> None:
-    with open(path, "a") as f:
-        f.write(json.dumps({"argv": sys.argv, "launches": [
-            [name, V, n] for (name, V), n in sorted(LAUNCHES.items())]})
-            + "\n")
-
-
-if os.environ.get(LAUNCH_LOG_ENV):
-    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])
 
 # Null slots per segment of the per-Gaussian reduction (see segment_sum).
 NULL_RUN = 256

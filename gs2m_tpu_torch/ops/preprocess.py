@@ -50,7 +50,7 @@ import torch
 from gs2m_tpu_torch.core import sh as shlib
 from gs2m_tpu_torch.core.camera import Camera
 from gs2m_tpu_torch.core.gaussians import Gaussians
-from gs2m_tpu_torch.ops.blend import LAUNCHES
+from gs2m_tpu_torch.launches import LAUNCHES
 from gs2m_tpu_torch.ops.projection import Projected, project
 from gs2m_tpu_torch.ops.rasterize import build_features
 

@@ -17,7 +17,9 @@ gate), and cut train steps that never sync with the host; and the
 per-Gaussian preprocess pair (csrc/preprocess.cu) against the eager chain
 on the card: forward outputs (integers equal) on the CPU tests' edge scene,
 a small scene and the benchmark's 2^19-row state, backward at the gate,
-and its launches per train step.
+and its launches per train step; and the Adam kernel (csrc/adam.cu)
+bit-equal to the eager loop on the same card tensors, and its launches per
+update and per train step.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -809,3 +811,79 @@ def test_preprocess_launches_per_step(cuda, tmp_path, material):
     if material:
         assert trainer.rough_active_count == rough + 1
     assert n == {"preprocess_fwd": 3 if material else 2, "preprocess_bwd": 2}
+
+
+@pytest.mark.parametrize("rows,count", [(4099, 0), (4099, 15_090),
+                                        (524_289, 15_090)])
+def test_adam_kernel_bit_equal_to_eager_loop(cuda, rows, count):
+    """csrc/adam.cu against the eager loop (adam_update_plain) on the same
+    card tensors over 3 steps whose LRs change: the nine groups at SH
+    degree 3 of an odd row count (every group's ragged end), dead rows with
+    zero moments, a group without a gradient, a group with -0.0 moments and
+    an unaligned gradient (copied). p, m and v bit-equal; one launch an
+    update."""
+    import chip_smoke
+    from gs2m_tpu_torch.train import optim
+
+    params, grads, state, lrs = chip_smoke.adam_case(rows, cuda, 5, count)
+    assert grads["xyz"].data_ptr() % 16 != 0
+    ref = {k: v.clone() for k, v in params.items()}
+    ref_state = optim.AdamState(
+        mu={k: v.clone() for k, v in state.mu.items()},
+        nu={k: v.clone() for k, v in state.nu.items()}, count=count)
+    n0 = blend.LAUNCHES["adam", 0]
+    for step in range(3):
+        optim.adam_update(params, grads, state, lrs(step))
+        optim.adam_update_plain(ref, grads, ref_state, lrs(step))
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["adam", 0] - n0 == 3
+    assert state.count == ref_state.count == count + 3
+    bits = lambda x: x.view(torch.int32)
+    for what, a, b in (("p", params, ref), ("m", state.mu, ref_state.mu),
+                       ("v", state.nu, ref_state.nu)):
+        for k in a:
+            assert torch.equal(bits(a[k]), bits(b[k])), (what, k)
+
+
+@pytest.mark.parametrize("material", [False, True], ids=["geometry", "material"])
+def test_adam_launches_per_step(cuda, tmp_path, material):
+    """One launch of csrc/adam.cu a train step in the geometry stage, two in
+    the material stage (the Gaussians' and the light's update)."""
+    trainer = small_trainer(cuda, tmp_path, material)
+    for _ in range(3):
+        trainer.train_step()
+    before = blend.LAUNCHES["adam", 0]
+    trainer.train_step()
+    torch.cuda.synchronize()
+    assert blend.LAUNCHES["adam", 0] - before == (2 if material else 1)
+
+
+def test_adam_time_counts_under_the_profiler_range_around_it(cuda):
+    """The kernel is launched inside the operator gs2m::adam_, so the
+    profiler ties its device time to that op and to the step/* range around
+    the update, where the benchmark reads the stage's device ms."""
+    import chip_smoke
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gs2m_tpu_torch.train import optim
+
+    params, grads, state, lrs = chip_smoke.adam_case(1 << 16, cuda, 3)
+    optim.adam_update(params, grads, state, lrs(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("step/update"):
+            optim.adam_update(params, grads, state, lrs(1))
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernel_us = sum(e.device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and "adam_kernel" in e.name)
+    span = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name == "step/update"]
+    op = [e for e in events if e.device_type == DeviceType.CPU
+          and e.name == "gs2m::adam_"]
+    assert kernel_us > 0 and len(span) == 1 and len(op) == 1
+    assert op[0].device_time_total == pytest.approx(kernel_us, rel=1e-6)
+    assert span[0].device_time_total >= kernel_us
