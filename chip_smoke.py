@@ -39,7 +39,7 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 distribution no wider than the chain's plus the gate's
                 tolerances), each kernel timed beside its bytes bound.
                 Every later kernel phase
-                (train, cut, dp, material, quality, runners, turntable)
+                (train, dp, material, quality, runners, turntable)
                 checks the pair too, at its path's shapes and SH degree
   render path   the render app, gs2m_tpu_torch.apps.render.main, over all
                 views with --dtu: DTU's mesh preset (max depth 5, voxel
@@ -124,21 +124,6 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 socket with train-full's Gaussians at 800x600: five requests
                 for view 0, each reply within 1 LSB of render()'s image, K1
                 launched once per request, ms per request
-  train-opaque- the binning termination cut (ops/binning.py term_cut) on
-  cut           train-full's scene at bench_train.py's opaque preset
-                (log-scale log 0.02, opacity 0.9), caps presized from a probe
-                of every view (the instance cap from the uncut demand, as a
-                trainer without the cut holds it): ten geometry steps with
-                the cut across iteration 100, where the instance cap must
-                shrink with nothing dropped, and the trim's counter on the
-                cut layout (the counted path: K1 20, K2 20, K3 8); on view 0
-                the cut and base layouts, the cut's own ms and peak memory,
-                K1's image, final T and observe bit-equal between the two
-                layouts, K2's per-Gaussian gradients at the gate, K3 equal,
-                then K1/K2/K3 against their plain versions on the cut
-                layout; then ten cut and ten uncut steps from one state in
-                turns (ms, a profile of each), and the first step's loss and
-                gradients cut against uncut (printed, not gated)
   LPIPS         utils/lpips.py on the card with synthetic VGG16 weights: two
                 800x600 images within rtol 1e-4 of the CPU, ms per pair; the
                 metrics app's LPIPS column on the render-full model with
@@ -457,15 +442,13 @@ def k2_probe(defines: tuple, args, kw):
 
 
 def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
-                 band: tuple | None = None, bin_kw: dict | None = None,
-                 drop_ok: bool = False):
+                 band: tuple | None = None, drop_ok: bool = False):
     """K1 against its plain version on the binning of one view, with the
     value width (V) that `feature_count` gives; with `band` (y0, rows), on
-    that band's binning as parallel/sp.py renders it; `bin_kw` is passed to
-    bin_gaussians (the termination cut's layout); `drop_ok` keeps a binning
-    that overflowed `cap` (a path that never regrows its cap). Returns
-    (report, context) where the context carries the binning and K1's
-    outputs to K2 and K3."""
+    that band's binning as parallel/sp.py renders it; `drop_ok` keeps a
+    binning that overflowed `cap` (a path that never regrows its cap).
+    Returns (report, context) where the context carries the binning, the
+    Gaussian count and K1's outputs to K2 and K3."""
     import torch
 
     from gs2m_tpu_torch.ops import blend
@@ -483,7 +466,7 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
         H = band[1]
     grid_y, grid_x = num_tiles(H, W, 16)
     T = grid_y * grid_x
-    binning = bin_gaussians(proj, H, W, 16, cap, chunk, op, **(bin_kw or {}))
+    binning = bin_gaussians(proj, H, W, 16, cap, chunk, op)
     if int(binning.dropped) != 0 and not drop_ok:
         fail(f"kernel phase binning dropped {int(binning.dropped)}")
     values = pack_values(proj.colors, build_features(g, cam), feature_count)
@@ -553,7 +536,8 @@ def kernel_phase(g, cam, chunk: int, cap: int, feature_count: int,
                   live_chunks_per_tile=stats["live_chunks_per_tile"],
                   resources=blend.kernel_info("blend_fwd", vals.shape[0], chunk))
     ctx = dict(geom=geom, vals=vals, binning=binning, kw=kw, k1=ker,
-               pairs=pairs, contrib=contrib, n_live=n_live, stats=stats)
+               C=op.shape[0], pairs=pairs, contrib=contrib, n_live=n_live,
+               stats=stats)
     return report, ctx
 
 
@@ -604,7 +588,7 @@ def k2_phase(ctx: dict) -> dict:
     if float(frac_ok.min()) < 0.9999:
         fail(f"K2: a channel has only {float(frac_ok.min()):.6f} of entries "
              f"within 1e-4*max+1e-6 (need 0.9999)")
-    C = b.gauss_present.shape[0]
+    C = ctx["C"]
     key = torch.where(b.is_null, C, b.gid)
     ga, gr = segment_sum(a, key, C), segment_sum(r, key, C)
     leaves = {"values": slice(0, V), "means2d": slice(V, V + 2),
@@ -1113,12 +1097,11 @@ def adam_model(cell: str, g, seed: int) -> dict:
 
 
 def kernel_phases(cell: str, g, cam, chunk: int, cap: int,
-                  feature_count: int, deg: int,
-                  bin_kw: dict | None = None) -> dict:
+                  feature_count: int, deg: int) -> dict:
     """K1, K2 and K3 against their plain versions on one view of a cell,
     and the preprocess pair at SH degree `deg`; returns each kernel's
     report by launch-counter name."""
-    k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count, bin_kw=bin_kw)
+    k1, ctx = kernel_phase(g, cam, chunk, cap, feature_count)
     print(f"[smoke] {cell} K1 blend_fwd: {json.dumps(k1)}")
     k2 = k2_phase(ctx)
     print(f"[smoke] {cell} K2 blend_bwd: {json.dumps(k2)}")
@@ -2131,321 +2114,6 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
     return ({"sp-render": {"blend_fwd": k1r},
              "sp-grad": {"blend_fwd": k1g, "blend_bwd": k2g}},
             {"sp-render": render_launches, "sp-grad": grad_launches})
-
-
-# The train-opaque-cut cell: train-full's scene at bench_train.py's opaque
-# preset (bench_train.py:87-104: log-scale log 0.02, opacity 0.9), the
-# converged-opacity operating point the termination cut was designed for.
-# Its trainer runs geometry steps CUT_FROM + 1 .. CUT_FROM + CUT_STEPS, across
-# the 100-iteration boundary where the split caps are resized.
-CUT_SCALE, CUT_OPACITY = 0.02, 0.9
-CUT_FROM, CUT_STEPS, CUT_TIMED = 95, 10, 10
-
-
-def cut_trainer(train_dir: Path, dev):
-    """A term_cut Trainer on the train scene at the opaque preset, its caps
-    presized from a probe of every view (bench_train.py:107-130): the
-    instance cap at 1.1x the worst view's UNCUT aligned demand (what a
-    trainer without the cut holds), the expand cap at 1.1x its instance
-    count; returns (trainer, probe)."""
-    import dataclasses
-
-    import torch
-
-    from gs2m_tpu_torch.core.config import (ModelConfig, OptimConfig,
-                                            PipelineConfig)
-    from gs2m_tpu_torch.data.scene import Scene
-    from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
-    from gs2m_tpu_torch.ops.projection import project
-    from gs2m_tpu_torch.train.trainer import Trainer
-
-    model = ModelConfig(source_path=str(train_dir), resolution=1)
-    opt = OptimConfig(geometry_from_iter=0, multi_view_max_angle=179.0,
-                      multi_view_max_dist=100.0, nearby_cam_max_angle=179.0,
-                      nearby_cam_max_dist=100.0)
-    pipe = PipelineConfig(term_cut=True)
-    tr = Trainer(model, pipe, opt, Scene(model, opt, device=dev))
-    logit = float(np.log(CUT_OPACITY / (1 - CUT_OPACITY)))
-    g = tr.gaussians
-    tr.gaussians = dataclasses.replace(
-        g, scaling=torch.full_like(g.scaling, float(np.log(CUT_SCALE))),
-        opacity=torch.full_like(g.opacity, logit))
-    tr.active_sh_degree = tr.gaussians.max_sh_degree
-    g = tr.gaussians
-    op = g.get_opacity[:, 0]
-    H, W = TRAIN_H, TRAIN_W
-    gy, gx = num_tiles(H, W, pipe.tile)
-    probe = {"instances": 0, "aligned": 0, "aligned_cut": 0}
-    with torch.no_grad():
-        for cam in tr.scene.train_cameras:
-            proj = project(g, cam, g.max_sh_degree, op)
-            total = int(proj.tiles_touched.sum())
-            big = -(-(total + gy * gx * pipe.chunk) // 2 ** 17) * 2 ** 17
-            base = bin_gaussians(proj, H, W, pipe.tile, big, pipe.chunk, op)
-            cut = bin_gaussians(proj, H, W, pipe.tile, big, pipe.chunk, op,
-                                with_present=False, term_cut=True,
-                                expand_cap=big)
-            if int(base.dropped) or int(cut.dropped):
-                fail("train-opaque-cut probe dropped instances")
-            probe["instances"] = max(probe["instances"], total)
-            probe["aligned"] = max(probe["aligned"], int(base.num_aligned))
-            probe["aligned_cut"] = max(probe["aligned_cut"],
-                                       int(cut.num_aligned))
-
-    def round17(n):
-        return max(-(-int(n * 1.1) // 2 ** 17) * 2 ** 17, 2 ** 17)
-
-    tr.instance_cap = round17(probe["aligned"])
-    tr.expand_cap = max(round17(probe["instances"]), tr.instance_cap)
-    tr._steps.clear()
-    tr._observe_counter = None
-    tr.iteration = CUT_FROM
-    return tr, probe
-
-
-def cut_bin_cost(proj, op, cap: int, chunk: int, **kw) -> tuple:
-    """(ms, peak MiB above the allocation before the call) of one
-    bin_gaussians call on view 0: CUDA events, median of 20."""
-    import torch
-
-    from gs2m_tpu_torch.ops.binning import bin_gaussians
-
-    def call():
-        return bin_gaussians(proj, TRAIN_H, TRAIN_W, 16, cap, chunk, op, **kw)
-
-    ms = time_ms(call, 20)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    call()
-    torch.cuda.synchronize()
-    return ms, (torch.cuda.max_memory_allocated() - before) / 2 ** 20
-
-
-def cut_layout_phase(tr, base_cap: int, card: str) -> dict:
-    """On view 0: the cut and base layouts (instances, aligned slots, the
-    cut's share), the cut's own ms and peak memory (the binning with and
-    without the cut at the same caps), then the blend on both layouts
-    through the wrappers: K1's image, final T and observe counts bit-equal,
-    K2's per-Gaussian gradients at the check_grads gate (bit-equality
-    printed), K3's counts equal; then each kernel against its plain version
-    on the cut layout (kernel_phases). Returns the kernel reports."""
-    import torch
-
-    from gs2m_tpu_torch.ops import blend
-    from gs2m_tpu_torch.ops.binning import bin_gaussians
-    from gs2m_tpu_torch.ops.projection import project
-    from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
-    from gs2m_tpu_torch.utils.grad_gate import DEFAULT_TOL, TOLERANCES, grad_gate
-
-    g, cam, chunk = tr.gaussians, tr.scene.train_cameras[0], tr.pipe.chunk
-    H, W = cam.height, cam.width
-    cut_kw = dict(with_present=False, term_cut=True, expand_cap=tr.expand_cap)
-    with torch.no_grad():
-        op = g.get_opacity[:, 0]
-        proj = project(g, cam, g.max_sh_degree, op)
-        base = bin_gaussians(proj, H, W, 16, base_cap, chunk, op)
-        cut = bin_gaussians(proj, H, W, 16, tr.instance_cap, chunk, op,
-                            **cut_kw)
-        if int(base.dropped) or int(cut.dropped):
-            fail(f"train-opaque-cut view 0 dropped: base {int(base.dropped)}, "
-                 f"cut {int(cut.dropped)}")
-        # The cut's own cost: both binnings at the same caps, so that only
-        # the cut's passes differ.
-        same = max(base_cap, tr.expand_cap)
-        base_ms, base_mib = cut_bin_cost(proj, op, same, chunk)
-        same_ms, same_mib = cut_bin_cost(proj, op, same, chunk,
-                                         with_present=False, term_cut=True,
-                                         expand_cap=same)
-        cut_ms, cut_mib = cut_bin_cost(proj, op, tr.instance_cap, chunk,
-                                       **cut_kw)
-    n_base, n_cut = int(base.num_aligned), int(cut.num_aligned)
-    print(f"[smoke] train-opaque-cut view 0: {int(base.num_instances)} "
-          f"instances; aligned slots {n_base} uncut, {n_cut} cut (share cut "
-          f"{1 - n_cut / n_base:.4f}); binning at {same} slots: uncut "
-          f"{base_ms:.3f} ms / peak +{base_mib:.1f} MiB, with the cut "
-          f"{same_ms:.3f} ms / +{same_mib:.1f} MiB (the cut's own "
-          f"{same_ms - base_ms:.3f} ms, +{same_mib - base_mib:.1f} MiB); at "
-          f"the trainer's caps (instance {tr.instance_cap}, expand "
-          f"{tr.expand_cap}) {cut_ms:.3f} ms / +{cut_mib:.1f} MiB; CUDA "
-          f"events, median of 20, on {card}")
-
-    # The blend on both layouts: K1 (forward), K2 (autograd backward), K3.
-    values = pack_values(proj.colors, build_features(g, cam), 5).detach()
-    outs = []
-    for b in (base, cut):
-        leaves = [x.detach().clone().requires_grad_(True)
-                  for x in (values, proj.means2d, proj.conics, op)]
-        o = blend.blend_tiles(*leaves, b, H, W, 16, chunk)
-        w = torch.linspace(-1, 1, o.image.numel(), device=o.image.device)
-        loss = (o.image * w.reshape(o.image.shape)).sum() + o.final_T.sum()
-        grads = torch.autograd.grad(loss, leaves)
-        obs = blend.observe_tiles(proj.means2d, proj.conics, op, b, H, W, 16,
-                                  chunk)
-        outs.append((o, grads, obs))
-    (o0, g0, obs0), (o1, g1, obs1) = outs
-    k1_equal = {k: bool(torch.equal(getattr(o1, k), getattr(o0, k)))
-                for k in ("image", "final_T", "observe")}
-    gates, bit_equal = {}, {}
-    for name, a, b in zip(("values", "means2d", "conics", "opacity"), g1, g0):
-        rep = grad_gate(a.cpu().numpy(), b.cpu().numpy(),
-                        TOLERANCES.get(name, DEFAULT_TOL))
-        gates[name] = {k: rep[k] for k in ("p999", "rel_to_max", "pass")}
-        bit_equal[name] = bool(torch.equal(a, b))
-    k3_equal = bool(torch.equal(obs1, obs0))
-    print(f"[smoke] train-opaque-cut blend, cut vs base layout on view 0: "
-          f"K1 bit-equal {k1_equal}; K2 per-Gaussian gradients gate {gates}, "
-          f"bit-equal {bit_equal}; K3 counts equal {k3_equal}")
-    if not all(k1_equal.values()):
-        fail(f"K1 on the cut layout is not bit-equal to the base: {k1_equal}")
-    if not all(v["pass"] for v in gates.values()):
-        fail(f"K2 on the cut layout fails the gradient gate: {gates}")
-    if not k3_equal:
-        fail("K3 counts on the cut layout differ from the base layout's")
-    del outs, o0, o1, g0, g1
-    return kernel_phases("train-opaque-cut", g, cam, chunk, tr.instance_cap,
-                         5, tr.active_sh_degree, bin_kw=cut_kw)
-
-
-def cut_step_turns(tr, base_cap: int, card: str) -> None:
-    """CUT_TIMED geometry steps with the cut against as many without it,
-    from one state, in turns (uncut, cut, cut, uncut; CUDA events per step,
-    median over each kind's steps), a profile of one step of each (busy ms,
-    idle share, launches), and, printed but not gated, the first step's
-    loss and per-Gaussian gradients cut against uncut."""
-    import torch
-
-    from gs2m_tpu_torch.train.trainer import make_train_step, make_view_objective
-    from gs2m_tpu_torch.utils.grad_gate import DEFAULT_TOL, TOLERANCES, grad_gate
-
-    args = (tr.model_cfg, tr.pipe, tr.opt, tr.scene)
-    kinds = {"uncut": (base_cap, {}),
-             "cut": (tr.instance_cap, dict(term_cut=True,
-                                           expand_cap=tr.expand_cap))}
-    views = [tr.choose_views(False)[:3] for _ in range(CUT_TIMED)]
-    snap = snapshot(tr)
-
-    # The first step's loss and gradients, cut against uncut (not gated).
-    first = {}
-    for kind, (cap, kw) in kinds.items():
-        restore(tr, snap)
-        objective = make_view_objective(*args, cap, True, **kw)
-        g = tr.gaussians
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in g.params_dict().items()}
-        sinks = [g.xyz.new_zeros(g.capacity, 2, requires_grad=True)
-                 for _ in range(2)]
-        loss, _ = objective(g, params, *sinks, *views[0], tr.active_sh_degree,
-                            tr.generator)
-        grads = torch.autograd.grad(loss, list(params.values()) + sinks,
-                                    allow_unused=True)
-        first[kind] = (loss.detach(),
-                       dict(zip(list(params) + ["sink", "abs_sink"], grads)))
-    (lu, gu), (lc, gc) = first["uncut"], first["cut"]
-    rel = abs(float(lc) - float(lu)) / max(abs(float(lu)), 1e-30)
-    report = {}
-    for name, a in gc.items():
-        b = gu[name]
-        if a is not None and b is not None:
-            rep = grad_gate(a.cpu().numpy(), b.cpu().numpy(),
-                            TOLERANCES.get(name, DEFAULT_TOL))
-            report[name] = (rep["pass"], bool(torch.equal(a, b)))
-    print(f"[smoke] train-opaque-cut first step, cut vs uncut (not gated): "
-          f"loss {float(lc)!r} vs {float(lu)!r} (rel {rel:.3g}, within 1e-6: "
-          f"{rel <= 1e-6}); gradients (gate pass, bit-equal) {report}")
-    del first, gu, gc
-
-    steps = {kind: make_train_step(*args, cap, True, **kw)
-             for kind, (cap, kw) in kinds.items()}
-
-    def one(kind, i):
-        view, nearest, has = views[i]
-        (tr.gaussians, tr.opt_state, tr.stats, _) = steps[kind](
-            tr.gaussians, tr.opt_state, tr.stats, view, nearest, has,
-            CUT_FROM + 1 + i, tr.active_sh_degree, tr.generator)
-
-    times = {"uncut": [], "cut": []}
-    torch.cuda.reset_peak_memory_stats()
-    for kind in ("uncut", "cut", "cut", "uncut"):
-        restore(tr, snap)
-        for i in range(CUT_TIMED):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            one(kind, i)
-            b.record()
-            times[kind].append((a, b))
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = {k: float(np.median([a.elapsed_time(b) for a, b in v]))
-           for k, v in times.items()}
-    print(f"[smoke] train-opaque-cut steps in turns (uncut, cut, cut, uncut; "
-          f"{CUT_TIMED} steps each from one state): uncut {med['uncut']:.2f} "
-          f"ms/step (cap {base_cap}), cut {med['cut']:.2f} ms/step (caps "
-          f"{tr.instance_cap} / {tr.expand_cap}), median of {2 * CUT_TIMED}, "
-          f"CUDA events; peak memory {peak:.2f} GiB on {card}")
-    for kind in ("uncut", "cut"):
-        restore(tr, snap)
-        profile_call(f"train-opaque-cut {kind} step",
-                     lambda: one(kind, 0), med[kind])
-    restore(tr, snap)
-
-
-def cut_path(train_dir: Path, card: str, dev):
-    """The train-opaque-cut cell: the trainer's cut steps across the
-    100-iteration boundary and the trim's counter on the cut layout (the
-    path whose launches are counted), then the view-0 layouts and kernels
-    and the step timing. Returns (kernel reports, launches)."""
-    import torch
-
-    from gs2m_tpu_torch.ops import blend
-    from gs2m_tpu_torch.train.trainer import make_observe_counter
-
-    t0 = time.perf_counter()
-    tr, probe = cut_trainer(train_dir, dev)
-    base_cap, expand_cap = tr.instance_cap, tr.expand_cap
-    print(f"[smoke] train-opaque-cut probe over {TRAIN_VIEWS} views: worst "
-          f"{probe['instances']} instances, aligned {probe['aligned']} uncut "
-          f"and {probe['aligned_cut']} cut -> instance_cap {base_cap}, "
-          f"expand_cap {expand_cap} ({time.perf_counter() - t0:.1f} s)")
-
-    blend.LAUNCHES.clear()
-    dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    caps = []
-    with AdamTap("train-opaque-cut", {"xyz": CUT_STEPS}) as tap:
-        for _ in range(CUT_STEPS):
-            m = tr.train_step()
-            dropped = torch.maximum(dropped, m["dropped"])
-            caps.append((tr.iteration, tr.instance_cap, tr.expand_cap))
-    counts, trim_drop = make_observe_counter(
-        tr.scene, tr.pipe, tr.instance_cap, term_cut=True,
-        expand_cap=tr.expand_cap)(tr.gaussians)
-    torch.cuda.synchronize()
-    launches = blend.launch_counts()
-    want = {"blend_fwd": 2 * CUT_STEPS, "blend_bwd": 2 * CUT_STEPS,
-            "blend_obs": TRAIN_VIEWS, "preprocess_fwd": 2 * CUT_STEPS
-            + TRAIN_VIEWS, "preprocess_bwd": 2 * CUT_STEPS,
-            "adam": CUT_STEPS}
-    print(f"[smoke] train-opaque-cut trainer: iterations {CUT_FROM + 1}.."
-          f"{tr.iteration} with the cut, caps (iteration, instance, expand) "
-          f"{caps}; last loss {float(m['loss']):.5f}, dropped {int(dropped)}, "
-          f"aligned demand {int(m['aligned_demand'])}; the trim's counter on "
-          f"the cut layout: dropped {int(trim_drop)}, "
-          f"{int((counts >= 2).sum())} Gaussians seen in >= 2 views; launches "
-          f"{launches} (expected {want})")
-    if not np.isfinite(float(m["loss"])) or int(dropped) or int(trim_drop):
-        fail("train-opaque-cut: non-finite loss or dropped instances")
-    if not tr.instance_cap < base_cap or tr.expand_cap != expand_cap:
-        fail(f"train-opaque-cut: instance_cap {base_cap} -> "
-             f"{tr.instance_cap} (must shrink at iteration 100), expand_cap "
-             f"{expand_cap} -> {tr.expand_cap}")
-    if launches != want:
-        fail(f"train-opaque-cut launches {launches}, expected {want}")
-    adam = tap.reports()
-
-    reports = {**cut_layout_phase(tr, base_cap, card), "adam": adam}
-    cut_step_turns(tr, base_cap, card)
-    return reports, launches
 
 
 def lpips_weights(path: Path, seed: int) -> None:
@@ -3700,11 +3368,6 @@ def main(argv=None) -> None:
     viewer_path(trainer, card)
     del trainer
 
-    # --- phase 6c: the binning termination cut (train-opaque-cut) ----------
-    mark("phase 6c")
-    cut_kernels, cut_launches = cut_path(train_dir, card, dev)
-    torch.cuda.empty_cache()
-
     # --- phase 6b: two data-parallel ranks of the train app (dp-train) -----
     mark("phase 6b")
     dp_kernels, dp_launches = dp_path(root, train_dir, card, dev, geo_ms)
@@ -3800,7 +3463,6 @@ def main(argv=None) -> None:
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
-            ("train-opaque-cut", cut_kernels, cut_launches),
             ("render-full", pre("blend_fwd", "preprocess_fwd"), launches),
             ("quality-smoke", {k: quality_kernels[k]
                                for k in ("blend_fwd", "blend_bwd",

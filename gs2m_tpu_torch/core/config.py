@@ -4,9 +4,9 @@ Port of gs2m_tpu/core/config.py: the same three groups with the same flag
 names, defaults and shorthands, so the port reads a `cfg_args.json` written
 by the JAX trainer (and the JAX apps read one written here). The pipeline
 group keeps the JAX package's blend knobs for file compatibility; the
-port's render path reads `tile`, `chunk` and `instance_cap_mult`, and its
-trainer `term_cut` (the binning termination cut with split instance caps,
-train/trainer.py). `use_pallas` and `compact_bwd` have no effect here.
+port's render path reads `tile`, `chunk` and `instance_cap_mult`.
+`use_pallas`, `compact_bwd` and `term_cut` have no effect here (the
+trainer prints a notice when `term_cut` is set).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class PipelineConfig:
     instance_cap_mult: float = 4.0      # instance buffer ~ mult * capacity
     use_pallas: bool = True
     compact_bwd: bool = True
-    term_cut: bool = False              # binning termination cut (trainer)
+    term_cut: bool = False              # no effect here (see above)
 
 
 @dataclass

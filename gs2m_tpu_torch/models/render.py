@@ -8,11 +8,10 @@ output surface:
   albedo_map (3,H,W) | roughness_map (1,H,W) | metallic_map (1,H,W) |
   normal_mask (1,H,W) | radii (C,) | visibility_filter (C,) | observe (C,) |
   sobel_map (3,H,W, optional) | final_T (H,W) | dropped () |
-  dropped_expand () | aligned_demand () (the binning's expansion-cap
-  overflow and aligned slots in use, which the trainer sizes its caps from)
-  | num_instances () | num_kept () (port only: the binned instance count
+  num_instances () | num_kept () (port only: the binned instance count
   and the instances the per-tile cull keeps, for reports; with the span
-  recorder on, the deepest tile's slots are counted too)
+  recorder on, the aligned slots in use and the deepest tile's slots are
+  counted too)
 
 feature_count staging: 1 (RGB warmup) / 5 (+distance+normal, geometry) /
 9 (+albedo+roughness, material) / +1 when blending metallic.
@@ -22,8 +21,6 @@ per-Gaussian preprocess is one kernel pair and the blend's backward is
 kernel K2 on CUDA tensors). Densification statistics
 flow through the `m2d_sink` / `m2d_abs_sink` zero tensors, whose gradients
 the trainer reads. `count_observed` is the trim's observe-only pass.
-`term_cut` / `expand_cap` bin with the termination cut (ops/binning.py), as
-the JAX package's render_pair does for the geometry step's renders.
 """
 from __future__ import annotations
 
@@ -60,8 +57,6 @@ def render(
     instance_cap: int = 2 ** 18,
     m2d_sink: torch.Tensor | None = None,
     m2d_abs_sink: torch.Tensor | None = None,
-    term_cut: bool = False,
-    expand_cap: int | None = None,
 ) -> dict:
     feature_count = feature_count_for(geometry_stage, material_stage,
                                       blend_metallic)
@@ -71,15 +66,13 @@ def render(
     out = rasterize_from_projected(
         proj, opacities, features, bg, camera, feature_count=feature_count,
         tile=tile, chunk=chunk, instance_cap=instance_cap,
-        m2d_sink=m2d_sink, m2d_abs_sink=m2d_abs_sink, term_cut=term_cut,
-        expand_cap=expand_cap)
+        m2d_sink=m2d_sink, m2d_abs_sink=m2d_abs_sink)
     return derive_render_pkg(out, camera, bg, z_depth=z_depth,
                              sobel_normal=sobel_normal)
 
 
 def count_observed(gaussians: Gaussians, camera: Camera, tile: int = 16,
-                   chunk: int = 256, instance_cap: int = 2 ** 18,
-                   term_cut: bool = False, expand_cap: int | None = None
+                   chunk: int = 256, instance_cap: int = 2 ** 18
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-Gaussian observe counts for this view and the binning overflow
     scalar — what the multi-view trim consumes — at a fraction of render()'s
@@ -89,9 +82,7 @@ def count_observed(gaussians: Gaussians, camera: Camera, tile: int = 16,
         opac, _, proj = preprocess(gaussians, camera, 0, tile=tile,
                                    with_colors=False)
         return observe_from_projected(proj, opac, camera, tile=tile,
-                                      chunk=chunk, instance_cap=instance_cap,
-                                      term_cut=term_cut,
-                                      expand_cap=expand_cap)
+                                      chunk=chunk, instance_cap=instance_cap)
 
 
 def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
@@ -133,8 +124,6 @@ def derive_render_pkg(out: RasterOut, camera: Camera, bg: torch.Tensor,
         "local_normal_map": local_normal_map,
         "final_T": out.final_T,
         "dropped": out.dropped,
-        "dropped_expand": out.dropped_expand,
-        "aligned_demand": out.aligned_demand,
         "num_instances": out.num_instances,
         "num_kept": out.num_kept,
     }

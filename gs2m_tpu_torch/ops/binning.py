@@ -1,8 +1,7 @@
 """Tile binning: Gaussian -> (tile, depth)-sorted, chunk-aligned instance lists.
 
-Port of gs2m_tpu/ops/binning.py, its termination cut (`term_cut`) and split
-caps (`expand_cap`) included, that returns the same `Binning` contract,
-equal to the JAX package's element for element:
+Port of gs2m_tpu/ops/binning.py (its uncut path) that returns the same
+layout, equal to the JAX package's element for element:
 
 * expansion is gather-based: slot i finds its Gaussian from the exclusive
   cumsum of tiles_touched (scatter-ones + cumsum), each Gaussian's slots
@@ -21,42 +20,21 @@ equal to the JAX package's element for element:
   the segment starts + one cumsum)
 * fixed instance capacity with an overflow counter, `dropped`, which the
   caller must surface (the render app doubles the cap on it)
-* `term_cut` cuts each tile's sorted run where termination is guaranteed
-  for every pixel of the tile (see `termination_kept`); the cut runs
-  between the sort and the aligned scatter, so the expansion and sort side
-  has its own cap, `expand_cap`, and its overflow is `dropped_expand`
 
 The backward (ops/blend.py) groups per-instance gradients by a stable sort
-on the Gaussian id, so it needs no per-Gaussian instance counts: the cut
-changes those counts, and the JAX package's `exact_rank` reduce, which
-serves that case there, has no counterpart here. `gauss_present` is
-returned as the JAX package returns it (zeros when `with_present` is
-False, its default under the cut).
+on the Gaussian id, so it needs no per-Gaussian instance counts: the JAX
+package's per-Gaussian fields, which its backward's reduce reads, have no
+counterpart here.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from gs2m_tpu_torch.ops.projection import Projected
 
 I32 = torch.int32
-
-# The termination cut's constants, the JAX package's: bounds per 4x4-pixel
-# block; credits quantized in 1e-3 steps (ceil, so conservative) and
-# clamped at -16; a block has crossed once its quantized sum is at or
-# below floor(log(1e-4) / 1e-3), the blend's termination threshold.
-CUT_BLOCK = 4
-CUT_SCALE = 1e-3
-CUT_Q_EPS = int(math.floor(math.log(1e-4) / CUT_SCALE))   # -9211
-CUT_CREDIT_MIN = -16.0
-ALPHA_GATE = 1.0 / 255.0
-# XLA divides by the constant as a multiply by its float32 reciprocal; the
-# cut does the same, so both packages round each credit alike.
-_INV_SCALE = float(np.float32(1.0) / np.float32(CUT_SCALE))
 
 
 class Binning(NamedTuple):
@@ -68,13 +46,9 @@ class Binning(NamedTuple):
     tile_nonempty: torch.Tensor  # (T,) bool — tiles with >= 1 instance
     num_instances: torch.Tensor  # () int32 — instance count before alignment
     dropped: torch.Tensor        # () int32 — instances lost to the capacity cap
-    gauss_offset: torch.Tensor   # (C,) int32 first expansion slot per Gaussian
-    gauss_live: torch.Tensor     # (C,) int32 in-capacity instances per Gaussian
     num_aligned: torch.Tensor    # () int32 — chunk-aligned slots in use
-    gauss_present: torch.Tensor  # (C,) int32 instances surviving the cull
-    dropped_expand: torch.Tensor  # () int32 — the expansion-cap part of dropped
-    # () int32 — instances kept by the cull (and cut); None in a layout made
-    # from the JAX package's Binning, which has no such count.
+    # () int32 — instances kept by the cull; None in a layout made from the
+    # JAX package's Binning, which has no such count.
     num_kept: torch.Tensor | None = None
 
 
@@ -98,67 +72,6 @@ def _scatter_add(positions: torch.Tensor, values, size: int) -> torch.Tensor:
     return out[:size]
 
 
-def termination_kept(tile_sorted: torch.Tensor, seg_start: torch.Tensor,
-                     cut_rows: torch.Tensor, *, T: int, grid_x: int,
-                     width: int, height: int, tile: int) -> torch.Tensor:
-    """(IE,) bool: the sorted instances the termination cut keeps.
-
-    Per instance and 4x4 block of its tile, alpha anywhere in the block is
-    at least amin = min(0.99, op * exp(-0.5 * lmax * d2_far)) (lmax the
-    conic's largest eigenvalue, d2_far the squared distance from the mean
-    to the block's farthest pixel). The blend composites only alpha >=
-    1/255, so the running sum of log1p(-amin) over such instances bounds
-    every block pixel's log T from above; once every block of a tile has
-    crossed log(1e-4), the blend has terminated every pixel and each deeper
-    instance contributes exactly nothing (value, weight and gradient).
-    Blocks outside the image count as crossed.
-
-    `cut_rows` (4, IE) carries (mean x, mean y, lmax, opacity) in sorted
-    order, `seg_start` (IE,) the sorted position where each slot's tile
-    starts. The quantized credits are summed in int64, which cannot wrap,
-    so each tile's prefix (global prefix minus the prefix at the tile's
-    start) is exact. The 16 blocks are visited one at a time and AND their
-    rows into one running mask: memory O(IE), not O(16 IE).
-    """
-    IE = tile_sorted.shape[0]
-    mx, my, lmax, op = cut_rows
-    valid = tile_sorted < T
-    tpos = torch.clamp_max(tile_sorted, T - 1)
-    tox = ((tpos % grid_x) * tile).float()
-    toy = ((tpos // grid_x) * tile).float()
-    half_lmax = 0.5 * lmax
-    inv_scale = torch.full_like(mx, _INV_SCALE)
-
-    def far_sq(m, origin):
-        """Per block column (or row): the squared distance from the mean to
-        the block's farthest pixel, and the block's first pixel."""
-        out = []
-        for r in range(tile // CUT_BLOCK):
-            b0 = origin + float(r * CUT_BLOCK)
-            far = torch.maximum(torch.abs(m - b0),
-                                torch.abs(m - (b0 + (CUT_BLOCK - 1))))
-            out.append((far * far, b0))
-        return out
-
-    cols = far_sq(mx, tox)
-    rows = far_sq(my, toy)
-    crossed_all = torch.ones(IE, dtype=torch.bool, device=mx.device)
-    for dy2, by0 in rows:
-        for dx2, bx0 in cols:
-            amin = torch.clamp_max(op * torch.exp(-(half_lmax * (dy2 + dx2))),
-                                   0.99)
-            credit = torch.where(
-                valid & (amin >= ALPHA_GATE),
-                torch.clamp_min(torch.log1p(-amin), CUT_CREDIT_MIN), 0.0)
-            q = torch.ceil(credit * inv_scale).long()          # <= 0
-            excl = torch.cumsum(q, 0) - q                      # sum before
-            excl_in = excl - excl[seg_start]                   # within tile
-            crossed = ((excl_in <= CUT_Q_EPS) | (bx0 >= width)
-                       | (by0 >= height))
-            crossed_all &= crossed
-    return ~crossed_all
-
-
 def tile_slots_max(chunk_tile: torch.Tensor, tiles: int,
                    chunk: int) -> torch.Tensor:
     """() int32: the most chunk-aligned slots any one tile holds in a
@@ -171,21 +84,11 @@ def tile_slots_max(chunk_tile: torch.Tensor, tiles: int,
 
 def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
                   instance_cap: int, chunk: int,
-                  opacities: torch.Tensor, with_present: bool = True,
-                  term_cut: bool = False,
-                  expand_cap: int | None = None) -> Binning:
-    """Build the chunk-aligned instance layout from projected Gaussians.
-
-    With `term_cut`, each tile's sorted run is cut after the instance at
-    which termination is guaranteed (termination_kept), an exact cut: the
-    blend's outputs and gradients are those of the uncut layout. The
-    expansion and sort then run at `expand_cap` slots (default
-    `instance_cap`), the aligned layout at `instance_cap`."""
-    IE = expand_cap or instance_cap
-    for name, cap in (("instance_cap", instance_cap), ("expand_cap", IE)):
-        if cap % chunk or cap > 2 ** 30:
-            raise ValueError(f"{name} {cap} must be a multiple of chunk "
-                             f"{chunk} and at most 2^30")
+                  opacities: torch.Tensor) -> Binning:
+    """Build the chunk-aligned instance layout from projected Gaussians."""
+    if instance_cap % chunk or instance_cap > 2 ** 30:
+        raise ValueError(f"instance_cap {instance_cap} must be a multiple of "
+                         f"chunk {chunk} and at most 2^30")
     dev = proj.means2d.device
     grid_y, grid_x = num_tiles(height, width, tile)
     T = grid_y * grid_x
@@ -195,11 +98,11 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     tt = proj.tiles_touched
     offsets = _cumsum(tt) - tt          # exclusive: first slot of each Gaussian
     total = offsets[-1] + tt[-1]
-    dropped_expand = torch.clamp_min(total - IE, 0)
+    dropped_expansion = torch.clamp_min(total - I, 0)
 
     # --- expansion: slot -> (gaussian, tile) ------------------------------------
-    slots = torch.arange(IE, dtype=I32, device=dev)
-    g = torch.clamp(_cumsum(_scatter_add(offsets, 1, IE)) - 1, 0, C - 1)
+    slots = torch.arange(I, dtype=I32, device=dev)
+    g = torch.clamp(_cumsum(_scatter_add(offsets, 1, I)) - 1, 0, C - 1)
     live = slots < total
 
     con = proj.conics
@@ -207,14 +110,12 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     disc = torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb + 1e-20)
     lmin = torch.clamp_min(0.5 * (ca + cc) - disc, 0.0)
     qmax = 2.0 * torch.log(torch.clamp_min(opacities, 1e-12) * 255.0)
-    cols = [proj.rect_min[:, 0].float(),
-            proj.rect_min[:, 1].float(),
-            torch.clamp_min(proj.rect_max[:, 0] - proj.rect_min[:, 0], 1).float(),
-            proj.depths, lmin, qmax, proj.means2d[:, 0], proj.means2d[:, 1]]
-    if term_cut:
-        cols += [0.5 * (ca + cc) + disc, opacities]  # lmax, opacity
-    table = torch.stack(cols)                                  # (8 or 10, C)
-    rows = torch.index_select(table, 1, g.long())              # (8 or 10, IE)
+    table = torch.stack([
+        proj.rect_min[:, 0].float(),
+        proj.rect_min[:, 1].float(),
+        torch.clamp_min(proj.rect_max[:, 0] - proj.rect_min[:, 0], 1).float(),
+        proj.depths, lmin, qmax, proj.means2d[:, 0], proj.means2d[:, 1]])
+    rows = torch.index_select(table, 1, g.long())              # (8, I)
     # Rank of each slot within its Gaussian's run (exact in f32: below the
     # Gaussian's tile count).
     j = (slots - offsets[g.long()]).float()
@@ -229,17 +130,6 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     tile_id = torch.where(keep, ty * grid_x + tx, T).to(I32)
     depth = torch.where(keep, rows[3], torch.inf)
 
-    # Per-Gaussian surviving-instance counts (slots of a Gaussian are
-    # contiguous in expansion order).
-    if with_present:
-        kcs = torch.cat([torch.zeros(1, dtype=I32, device=dev),
-                         _cumsum(keep.to(I32))])
-        seg_lo = torch.clamp(offsets, 0, IE).long()
-        seg_hi = torch.clamp(offsets + tt, 0, IE).long()
-        gauss_present = kcs[seg_hi] - kcs[seg_lo]
-    else:
-        gauss_present = torch.zeros(C, dtype=I32, device=dev)
-
     # --- stable (tile, depth) sort with the Gaussian id as payload ------------
     key = (tile_id.long() << 32) | depth.view(I32).long()
     sorted_key, perm = torch.sort(key, stable=True)
@@ -252,28 +142,6 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     start = start_fill[:T]
     counts = start_fill[1:] - start
     num_kept = start_fill[T]            # the live slots sort first
-    live_kept = tile_sorted < T
-
-    if term_cut:
-        # The cut's payloads ride the sort's permutation as one packed gather.
-        cut_rows = torch.index_select(rows[6:], 1, perm)
-        seg_start = start[torch.clamp_max(tile_sorted, T - 1).long()].long()
-        kept_raw = termination_kept(tile_sorted, seg_start, cut_rows, T=T,
-                                    grid_x=grid_x, width=width, height=height,
-                                    tile=tile)
-        # The kept set is a prefix of each tile's run by monotonicity; the
-        # aligned scatter's ranks rely on it, so it is enforced (as the JAX
-        # package does): nothing after a cut slot of the same tile is kept.
-        pos = torch.arange(IE, dtype=torch.int64, device=dev)
-        bad_pos = torch.where(~kept_raw & live_kept, pos, -1)
-        last_bad = torch.cummax(bad_pos, 0).values
-        kept = kept_raw & (last_bad < seg_start)
-        kcs2 = torch.cat([torch.zeros(1, dtype=I32, device=dev),
-                          _cumsum(kept.to(I32))])
-        kept_to = kcs2[start_fill.long()]   # kept before each tile's start
-        counts = kept_to[1:] - kept_to[:T]
-        num_kept = kept_to[T]
-        live_kept = live_kept & kept
 
     # --- chunk alignment ----------------------------------------------------------
     aligned = (counts + chunk - 1) // chunk * chunk
@@ -285,23 +153,21 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     # chunk shares one tile; empty tiles' duplicate starts accumulate, so
     # the cumsum still yields the LAST tile with astart <= slot).
     n_chunks = I // chunk
-    slots_out = torch.arange(I, dtype=I32, device=dev)
     t_of_c = torch.clamp(_cumsum(_scatter_add(astart // chunk, 1, n_chunks)) - 1,
                          0, T - 1).long()
     astart_c = astart[t_of_c, None].expand(n_chunks, chunk).reshape(-1)
     counts_c = counts[t_of_c, None].expand(n_chunks, chunk).reshape(-1)
-    in_tile = (slots_out < atotal) & (slots_out - astart_c < counts_c)
+    in_tile = (slots < atotal) & (slots - astart_c < counts_c)
 
     # Aligned layout via the shift scatter: dst = sorted position +
     # (astart - start)[tile]; the shift is constant over a tile's sorted
     # segment, so scatter its per-tile diffs at the segment starts and carry
-    # it forward with one cumsum. Culled and cut rows and dst >= I drop;
-    # chunk-padding slots keep gid 0. The cut keeps a prefix of each tile's
-    # run, so the kept instances' ranks are unchanged.
+    # it forward with one cumsum. Culled rows and dst >= I drop;
+    # chunk-padding slots keep gid 0.
     shift = astart - start
     sdiff = torch.cat([shift[:1], shift[1:] - shift[:-1]])
-    shift_slot = _cumsum(_scatter_add(start, sdiff, IE))
-    dst = torch.where(live_kept, slots + shift_slot, I)
+    shift_slot = _cumsum(_scatter_add(start, sdiff, I))
+    dst = torch.where(tile_sorted < T, slots + shift_slot, I)
     gid = torch.zeros(I + 1, dtype=I32, device=dev)
     gid[torch.clamp_max(dst, I).long()] = gid_sorted
     gid = torch.where(in_tile, gid[:I], 0)
@@ -320,11 +186,7 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
         chunk_tile=chunk_tile,
         tile_nonempty=(counts > 0) & covered[:T],
         num_instances=total.to(I32),
-        dropped=(dropped_expand + dropped_align).to(I32),
-        gauss_offset=torch.clamp(offsets, 0, IE),
-        gauss_live=torch.clamp_min(torch.minimum(tt, IE - offsets), 0),
+        dropped=(dropped_expansion + dropped_align).to(I32),
         num_aligned=torch.clamp_max(atotal, I).to(I32),
-        gauss_present=gauss_present,
-        dropped_expand=dropped_expand.to(I32),
         num_kept=num_kept,
     )

@@ -689,6 +689,7 @@ class _BlendTiles(torch.autograd.Function):
         ctx.mark_non_differentiable(observe)
         ctx.save_for_backward(geom, vals, raw.clogT, raw.cdone, raw.fT)
         ctx.binning = binning
+        ctx.C = values.shape[0]
         ctx.dims = dict(T=T, grid_x=grid_x, width=width, height=height,
                         tile=tile, chunk=chunk)
         ctx.grid_y = grid_y
@@ -708,7 +709,7 @@ class _BlendTiles(torch.autograd.Function):
                                  d["tile"])
         raw = blend_bwd(geom, vals, b.chunk_tile, clogT, cdone, g_img_t,
                         g_fT_t, fT, **d)
-        C = b.gauss_present.shape[0]
+        C = ctx.C
         key = torch.where(b.is_null, C, b.gid)
         acc = segment_sum(torch.cat([raw.dvals, raw.dgeom]), key, C)  # (V+8, C)
         return (acc[:V].T, acc[V:V + 2].T, acc[V + 2:V + 5].T, acc[V + 5],

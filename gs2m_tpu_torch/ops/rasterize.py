@@ -4,13 +4,10 @@ Port of gs2m_tpu/ops/rasterize.py's forward surface. Outputs are color
 (3,H,W) composited over the background, the 10-channel feature buffer
 (10,H,W) [alpha, plane distance, world normal x3, albedo x3, roughness,
 metallic], final T, radii, observe counts, the binning overflow
-`dropped` (with its expansion-cap part `dropped_expand`), the instance count
-`num_instances`, the aligned slots in use `aligned_demand` and the
-instances the per-tile cull keeps `num_kept`;
+`dropped`, the instance count `num_instances`, the aligned slots in use
+`aligned_demand` and the instances the per-tile cull keeps `num_kept`;
 `feature_count` (1/5/9/10) selects how many feature channels blend. The
-blend runs kernel K1 on CUDA tensors (ops/blend.py). `term_cut` bins with
-the termination cut (ops/binning.py), with the expansion side at
-`expand_cap`: outputs and gradients are those of the uncut layout.
+blend runs kernel K1 on CUDA tensors (ops/blend.py).
 """
 from __future__ import annotations
 
@@ -33,7 +30,6 @@ class RasterOut(NamedTuple):
     observe: torch.Tensor   # (C,) int32
     dropped: torch.Tensor   # () int32 — binning overflow diagnostic
     num_instances: torch.Tensor  # () int32 — (tile, Gaussian) pairs binned
-    dropped_expand: torch.Tensor  # () int32 — the expansion-cap part of dropped
     aligned_demand: torch.Tensor  # () int32 — aligned slots in use
     num_kept: torch.Tensor  # () int32 — instances kept by the per-tile cull
     # The layout's tile per chunk (T = the dummy tile), its tile count and
@@ -101,15 +97,11 @@ def rasterize_from_projected(
     instance_cap: int = 2 ** 17,
     m2d_sink: torch.Tensor | None = None,
     m2d_abs_sink: torch.Tensor | None = None,
-    term_cut: bool = False,
-    expand_cap: int | None = None,
 ) -> RasterOut:
     H, W = camera.height, camera.width
     with torch.no_grad():  # an integer layout: nothing to differentiate
         binning = bin_gaussians(proj, H, W, tile, instance_cap, chunk,
-                                opacities=opacities,
-                                with_present=not term_cut, term_cut=term_cut,
-                                expand_cap=expand_cap)
+                                opacities=opacities)
     values = pack_values(proj.colors, features, feature_count)
     means2d = proj.means2d if m2d_sink is None else proj.means2d + m2d_sink
     out = blend_tiles(values, means2d, proj.conics, opacities, binning,
@@ -125,7 +117,6 @@ def rasterize_from_projected(
                      radii=proj.radii, observe=out.observe,
                      dropped=binning.dropped,
                      num_instances=binning.num_instances,
-                     dropped_expand=binning.dropped_expand,
                      aligned_demand=binning.num_aligned,
                      num_kept=binning.num_kept,
                      chunk_tile=binning.chunk_tile,
@@ -139,20 +130,15 @@ def observe_from_projected(
     tile: int = 16,
     chunk: int = 256,
     instance_cap: int = 2 ** 17,
-    term_cut: bool = False,
-    expand_cap: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-Gaussian observe counts (C,) int32 and the binning `dropped`
     scalar, without blending any values: the multi-view trim consumes only
     visibility bits, which depend on geometry and opacity alone. Counts
-    equal rasterize_from_projected(...).observe, with or without the cut.
-    Nothing reduces per Gaussian here, so the binning skips its survivor
-    counts."""
+    equal rasterize_from_projected(...).observe."""
     H, W = camera.height, camera.width
     with torch.no_grad():
         binning = bin_gaussians(proj, H, W, tile, instance_cap, chunk,
-                                opacities=opacities, with_present=False,
-                                term_cut=term_cut, expand_cap=expand_cap)
+                                opacities=opacities)
         observe = observe_tiles(proj.means2d, proj.conics, opacities, binning,
                                 H, W, tile, chunk)
     return observe, binning.dropped

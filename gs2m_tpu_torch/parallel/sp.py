@@ -115,8 +115,8 @@ class _Bands:
                     buffer=op.new_zeros(10, h, cam.width),
                     final_T=op.new_zeros(h, cam.width), radii=proj.radii,
                     observe=torch.zeros_like(proj.radii), dropped=zero,
-                    num_instances=zero, dropped_expand=zero,
-                    aligned_demand=zero, num_kept=zero))
+                    num_instances=zero, aligned_demand=zero,
+                    num_kept=zero))
                 continue
             projc = crop_projected(proj, d * h, rows, tile)
             local_cam = dataclasses.replace(cam, height=rows)
@@ -151,7 +151,6 @@ class _Bands:
             observe=sum(o.observe.to(dev0) for o in outs),
             dropped=sum(o.dropped.to(dev0) for o in outs),
             num_instances=sum(o.num_instances.to(dev0) for o in outs),
-            dropped_expand=sum(o.dropped_expand.to(dev0) for o in outs),
             aligned_demand=sum(o.aligned_demand.to(dev0) for o in outs),
             num_kept=sum(o.num_kept.to(dev0) for o in outs))
 

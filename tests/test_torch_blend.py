@@ -18,9 +18,9 @@ from gs2m_tpu.ops.blend_xla import blend_tiles_xla
 from gs2m_tpu.ops.projection import project as jproject
 from gs2m_tpu.ops.rasterize import build_features, pack_values
 from gs2m_tpu_torch.ops import blend as tblend
-from gs2m_tpu_torch.ops.binning import Binning as TBinning
 from gs2m_tpu_torch.ops.binning import num_tiles
 
+from tests.test_torch_binning import port_binning
 from tests.test_torch_core import camera_pair, random_pose_scene
 
 torch.set_num_threads(1)
@@ -115,7 +115,7 @@ def test_blend_tiles_matches_xla(case):
     proj, op, values, b, (H, W), chunk = setup(case)
     ref = blend_tiles_xla(values, proj.means2d, proj.conics, op, b, H, W, 16,
                           chunk)
-    tb = TBinning(*[_t(x) for x in b])
+    tb = port_binning(b)
     got = tblend.blend_tiles(_t(values), _t(proj.means2d), _t(proj.conics),
                              _t(op), tb, H, W, 16, chunk)
     np.testing.assert_allclose(got.image.numpy(), np.asarray(ref.image),

@@ -18,10 +18,10 @@ from gs2m_tpu.ops.blend_pallas import (_gather_instances, _run_backward,
                                        _run_forward, blend_tiles_pallas,
                                        observe_tiles_pallas)
 from gs2m_tpu_torch.ops import blend as tblend
-from gs2m_tpu_torch.ops.binning import Binning as TBinning
 from gs2m_tpu_torch.ops.binning import num_tiles
 from gs2m_tpu_torch.utils.grad_gate import grad_gate as gate
 
+from tests.test_torch_binning import port_binning
 from tests.test_torch_blend import CASES, setup
 
 torch.set_num_threads(1)
@@ -95,7 +95,7 @@ def test_plain_k3_matches_pallas_and_k1(case):
     H, W, chunk = kw["height"], kw["width"], kw["chunk"]
     ref = observe_tiles_pallas(proj.means2d, proj.conics, op, b, H, W, 16,
                                chunk, interpret=True)
-    tb = TBinning(*[_t(x) for x in b])
+    tb = port_binning(b)
     got = tblend.observe_tiles(_t(proj.means2d), _t(proj.conics), _t(op), tb,
                                H, W, 16, chunk)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
@@ -133,7 +133,7 @@ def test_blend_function_grads_match_jax(case):
     ref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*jargs)
 
     targs = [_t(x).requires_grad_(True) for x in jargs]
-    tb = TBinning(*[_t(x) for x in b])
+    tb = port_binning(b)
     out = tblend.blend_tiles(*targs[:4], tb, H, W, 16, chunk,
                              m2d_abs_sink=targs[4])
     assert tuple(out.image.shape) == (V, Hp, Wp)
@@ -152,7 +152,7 @@ def test_blend_function_observe_only_cotangents():
     """A loss of the image alone leaves final_T's cotangent None: it counts
     as zeros (and observe never takes one)."""
     proj, op, values, b, (H, W), chunk = setup("scene_chunk64")
-    tb = TBinning(*[_t(x) for x in b])
+    tb = port_binning(b)
     v = _t(values).requires_grad_(True)
     out = tblend.blend_tiles(v, _t(proj.means2d), _t(proj.conics), _t(op), tb,
                              H, W, 16, chunk)

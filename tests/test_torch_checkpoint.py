@@ -39,11 +39,11 @@ def scene_dir(tmp_path_factory):
                  width=48, height=32, n_points=120)
 
 
-def make_trainer(scene_dir, model_path, term_cut=False):
+def make_trainer(scene_dir, model_path):
     mc = ModelConfig(source_path=scene_dir, model_path=str(model_path),
                      resolution=1, sh_degree=1)
     opt = OptimConfig(**OPT)
-    return Trainer(mc, PipelineConfig(chunk=64, term_cut=term_cut), opt,
+    return Trainer(mc, PipelineConfig(chunk=64), opt,
                    Scene(mc, opt, device="cpu"), seed=3)
 
 
@@ -87,43 +87,35 @@ def test_resume_repeats_the_uninterrupted_run(scene_dir, tmp_path):
     assert a._view_pool == b._view_pool
 
 
-def test_term_cut_resume_repeats_the_run_and_restores_expand_cap(scene_dir,
-                                                                tmp_path):
-    """Under the termination cut the checkpoint carries expand_cap and the
-    split caps' windows: the resumed run is bit-equal to the uninterrupted
-    one. A checkpoint written without the cut resumes with expand_cap at
-    its instance cap (the JAX package's fallback)."""
-    a = make_trainer(scene_dir, tmp_path / "a", term_cut=True)
+def test_checkpoint_with_split_cap_keys_resumes(scene_dir, tmp_path):
+    """A checkpoint written under the termination cut (with expand_cap and
+    the split caps' two windows) still resumes: those keys are ignored and
+    the run repeats the uninterrupted one. The port writes expand_cap as
+    None and no windows."""
+    a = make_trainer(scene_dir, tmp_path / "a")
     for _ in range(4):
         a.train_step()
-    a.expand_cap += 2 ** 17  # as an expansion-side overflow would leave it
-    saved = (a.expand_cap, int(a._aligned_window),
-             int(a._expand_drop_window))
-    assert saved[1] > 0
-    ckpt = str(tmp_path / "ckp4.pkl")
-    a.save_checkpoint(ckpt)
+    ckpt = tmp_path / "ckp4.pkl"
+    a.save_checkpoint(str(ckpt))
+    state = pickle.loads(ckpt.read_bytes())
+    assert state["expand_cap"] is None
+    assert "aligned_window" not in state and "expand_drop_window" not in state
+    state.update(expand_cap=a.instance_cap + 2 ** 17, aligned_window=1234,
+                 expand_drop_window=56)
+    ckpt.write_bytes(pickle.dumps(state))
     for _ in range(6):
         a.train_step()
 
-    b = make_trainer(scene_dir, tmp_path / "b", term_cut=True)
-    b.load_checkpoint(ckpt)
-    assert (b.expand_cap, int(b._aligned_window),
-            int(b._expand_drop_window)) == saved
+    b = make_trainer(scene_dir, tmp_path / "b")
+    b.load_checkpoint(str(ckpt))
+    assert (b.iteration, b.expand_cap) == (4, None)
     for _ in range(6):
         b.train_step()
     sa, sb = state_of(a), state_of(b)
     for k, v in sa.items():
         assert torch.equal(v, sb[k]), k
     assert (a.instance_cap, a.expand_cap) == (b.instance_cap, b.expand_cap)
-    assert torch.equal(a._aligned_window, b._aligned_window)
-
-    plain = make_trainer(scene_dir, tmp_path / "p")
-    plain.train_step()
-    plain.instance_cap += 2 ** 13
-    plain.save_checkpoint(str(tmp_path / "plain.pkl"))
-    c = make_trainer(scene_dir, tmp_path / "c", term_cut=True)
-    c.load_checkpoint(str(tmp_path / "plain.pkl"))
-    assert c.expand_cap == c.instance_cap == plain.instance_cap
+    assert torch.equal(a._dropped_window, b._dropped_window)
 
 
 @pytest.mark.parametrize("field,value,match", [("version", 3, "version 3"),

@@ -219,10 +219,11 @@ def test_ring_overwrites_oldest_and_says_so(monkeypatch):
 def test_train_step_logs_one_span_set_with_its_counters(scene, monkeypatch):
     tr = material_trainer(scene)
     tr.train_step()                        # first step: no recorder
-    pkgs = []
+    pkgs, outs = [], []
     derive = MR.derive_render_pkg
 
     def keep(*a, **kw):
+        outs.append(a[0])                  # the render's RasterOut
         pkgs.append(derive(*a, **kw))
         return pkgs[-1]
 
@@ -243,7 +244,7 @@ def test_train_step_logs_one_span_set_with_its_counters(scene, monkeypatch):
     assert c == {
         "instances": [float(p["num_instances"]) for p in pkgs],
         "kept_instances": [float(p["num_kept"]) for p in pkgs],
-        "aligned_slots": [float(p["aligned_demand"]) for p in pkgs],
+        "aligned_slots": [float(o.aligned_demand) for o in outs],
         "tile_slots_max": c["tile_slots_max"], "tiles": [float(tiles)] * renders}
     assert all(0 < m <= a for m, a in zip(c["tile_slots_max"], c["aligned_slots"]))
     assert all(0 < k <= i for k, i in zip(c["kept_instances"], c["instances"]))

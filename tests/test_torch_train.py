@@ -401,3 +401,93 @@ def test_train_app_default_device_raises_without_cuda(scene_dir, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_app.main(["-s", scene_dir, "-m", str(tmp_path)])
+
+
+def injected_drops(n_windows=7):
+    """Per-step binning drops for seven 100-iteration windows: none (the
+    cap holds), a small and a larger overflow (it grows to the demand plus
+    15 %), none again (it holds: the cap never shrinks), two bursts in one
+    window (the larger one counts), one past MAX_INSTANCE_CAP (it stops
+    there) and one more at that ceiling (a warning, no change)."""
+    bursts = [(), (500,), (3000,), (), (200_000, 150_000), (2 ** 26,),
+              (1000,)]
+    out = []
+    for w in range(n_windows):
+        window = [0] * 100
+        for k, d in enumerate(bursts[w]):
+            window[37 + 20 * k] = d
+        out += window
+    return out
+
+
+def test_instance_cap_rule_matches_jax(scenes):
+    """The 100-iteration rule on the same injected drops: the port's
+    instance_cap after every boundary equals the JAX trainer's (without
+    the termination cut or the backward compaction; the steps and the
+    maintenance stubbed out in both)."""
+    js, ts = scenes
+    opt_kw = dict(OPT_KW, geometry_from_iter=0, iterations=1000)
+    jt = JT.Trainer(JModel(sh_degree=1),
+                    JPipe(chunk=64, compact_bwd=False), JOpt(**opt_kw), js)
+    tt = TT.Trainer(TModel(sh_degree=1), TPipe(chunk=64), TOpt(**opt_kw), ts)
+    assert not jt._term_cut and tt.expand_cap is None
+    assert jt.instance_cap == tt.instance_cap
+    drops = injected_drops()
+
+    def jstep(gaussians, opt_state, stats, *args):
+        return gaussians, opt_state, stats, None, {
+            "dropped": jnp.int32(drops[jt.iteration - 1]),
+            "bwd_live": jnp.int32(0), "mv_active": jnp.int32(0),
+            "rough_active": jnp.int32(0)}
+
+    def tstep(gaussians, opt_state, stats, *args, **kw):
+        return gaussians, opt_state, stats, {
+            "loss": torch.zeros(()),
+            "dropped": torch.tensor(drops[tt.iteration - 1],
+                                    dtype=torch.int32),
+            "mv_active": 0, "rough_active": 0}
+
+    jt._get_step = lambda *a: jstep
+    tt._get_step = lambda *a: tstep
+    jt._maintenance = tt._maintenance = lambda it: None
+    caps = [tt.instance_cap]
+    for it in range(1, len(drops) + 1):
+        jt.train_step()
+        tt.train_step()
+        if it % 100 == 0:
+            caps.append(tt.instance_cap)
+            assert jt.instance_cap == caps[-1], (it, caps)
+    # Every branch of the rule was taken: hold, growth by demand, hold,
+    # the window's larger burst, the ceiling, and the warning there.
+    c = caps
+    assert c[1] == c[0] and c[2] > c[1] and c[3] > c[2] and c[4] == c[3]
+    want = -(-int((c[4] + 200_000) * 1.15) // 2 ** 17) * 2 ** 17
+    assert c[5] == max(want, c[4] + 2 ** 17) > c[4] + 2 ** 17
+    assert c[6] == c[7] == tt.MAX_INSTANCE_CAP
+    assert tt.expand_cap is None
+
+
+def test_term_cut_flag_is_inert(scene_dir, tmp_path, capsys):
+    """PipelineConfig(term_cut=True), the JAX package's termination cut,
+    has no effect in the port: a few warmup and geometry steps are bit-equal
+    to term_cut=False, and the trainer says so once."""
+    opt = TOpt(**OPT_KW, geometry_from_iter=2)
+    runs = []
+    for cut in (False, True):
+        mc = TModel(source_path=scene_dir, model_path=str(tmp_path / str(cut)),
+                    resolution=1, sh_degree=1)
+        tr = TT.Trainer(mc, TPipe(chunk=64, term_cut=cut), opt,
+                        TScene(mc, opt, device="cpu"), seed=4)
+        out = capsys.readouterr().out
+        assert ("term_cut has no effect" in out) == cut
+        for _ in range(4):
+            tr.train_step()
+        runs.append(tr)
+    plain, cut = runs
+    assert cut.mv_active_count == plain.mv_active_count > 0
+    assert torch.equal(cut.last_metrics["loss"], plain.last_metrics["loss"])
+    assert (cut.instance_cap, cut.expand_cap) == (plain.instance_cap, None)
+    for k, v in plain.gaussians.params_dict().items():
+        assert torch.equal(cut.gaussians.params_dict()[k], v), k
+        assert torch.equal(cut.opt_state.mu[k], plain.opt_state.mu[k]), k
+    assert torch.equal(cut.stats.accum, plain.stats.accum)
