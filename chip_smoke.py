@@ -15,6 +15,15 @@ synthetic full-width scenes from a seed with the port's own writers, and:
                 kernel's result to the loop's on clones of its inputs; the
                 runner cells, whose apps run in subprocesses, hold it on
                 their snapshot's parameters (adam_model)
+  instance_sum  csrc/instance_sum.cu (the backward's per-Gaussian reduce
+                pair) against segment_sum's chain (ops/blend.py::
+                instance_sum_plain) at the dtu-wo-brdf and tnt-wo-brdf
+                cells' layouts (the benchmark's state and view 0 at the
+                cell's cap, K2's rows on a seeded cotangent): sums bit-equal,
+                a rerun bit-equal, one launch of each kernel; both timed
+                beside the pair's bytes bound. Every K2 phase below holds
+                the pair the same way on its own rows (its record:
+                "instance_sum")
   render scene  500k Gaussians in the slab layout of bench.py, SH degree 3,
                 four 1600x1200 views, COLMAP sparse/0, a point_cloud snapshot
   kernel phase  on view 0's real binning (V=16): K1 (csrc/blend_fwd.cu), K2
@@ -602,6 +611,7 @@ def k2_phase(ctx: dict) -> dict:
             fail(f"K2 per-Gaussian {name} grads fail the gate: {rep}")
     if not torch.equal(segment_sum(a, key, C), ga):
         fail("the per-Gaussian reduction is not deterministic")
+    report["instance_sum"] = instance_sum_report(ker.dvals, ker.dgeom, b, C)
 
     ms = time_ms(lambda: blend_bwd(*args, **kw), 20)
     plain_ms = time_ms(lambda: blend_bwd_plain(*args, **kw), 3)
@@ -628,6 +638,118 @@ def k2_phase(ctx: dict) -> dict:
                   pass1_ms=pass1_ms, pass1_share=pass1_ms / ms,
                   resources=kernel_info("blend_bwd", V, chunk))
     return report
+
+
+def instance_sum_report(dvals, dgeom, b, C: int) -> dict:
+    """The backward's per-Gaussian reduce pair (csrc/instance_sum.cu)
+    against its plain version, segment_sum's chain (ops/blend.py::
+    instance_sum_plain), on K2's rows dvals (V, I), dgeom (8, I) of the
+    layout `b`: the (C, 8+V) sums bit-equal (torch.equal), a second run
+    bit-equal, one launch of each kernel a call; both timed (CUDA events,
+    median of 20) beside the pair's bytes bound: pass 1 reads exp_slot and
+    the kept slots' 8+V channels and writes their rows; pass 2 reads
+    exp_start, exp_kept over the walked range and the rows, and writes the
+    sums."""
+    import torch
+
+    from gs2m_tpu_torch.ops.blend import (LAUNCHES, instance_sum,
+                                          instance_sum_plain)
+
+    V, I = dvals.shape
+    n0 = {k: LAUNCHES[k, V] for k in ("instance_rows", "instance_sum")}
+    got = instance_sum(dvals, dgeom, b, C)
+    torch.cuda.synchronize()
+    launched = {k: LAUNCHES[k, V] - n for k, n in n0.items()}
+    again = instance_sum(dvals, dgeom, b, C)
+    ref = instance_sum_plain(dvals, dgeom, b, C)
+    torch.cuda.synchronize()
+    rep = {"V": V, "I": I, "C": C, "launches_a_call": launched,
+           "bit_equal_plain": bool(torch.equal(got, ref)),
+           "bit_equal_rerun": bool(torch.equal(got, again)),
+           "max_abs_err": float((got - ref).abs().max()) if C else 0.0}
+    if launched != {"instance_rows": 1, "instance_sum": 1}:
+        fail(f"instance_sum launched {launched}, expected one of each kernel")
+    if not (rep["bit_equal_plain"] and rep["bit_equal_rerun"]):
+        fail(f"instance_sum against segment_sum's chain: {rep}")
+    K = V + 8
+    kept = int(b.exp_kept.sum())
+    walked = int(b.exp_start[-1])
+    bytes_ = (4 * I + 2 * 4 * K * kept                      # pass 1
+              + 4 * (C + 1) + walked + 4 * K * kept + 4 * K * C)   # pass 2
+    rep.update(kept=kept, walked=walked,
+               ms=time_ms(lambda: instance_sum(dvals, dgeom, b, C), 20),
+               plain_ms=time_ms(lambda: instance_sum_plain(dvals, dgeom, b, C),
+                                20),
+               **bound(bytes_, 0.0))
+    rep["share_of_bound"] = rep["bound_ms"] / rep["ms"]
+    return rep
+
+
+def instance_sum_phase(config: str, seed: int = 0) -> dict:
+    """The reduce pair at a benchmark cell's layout (benchmark/configs/
+    <config>.json): the cell's state drawn from `seed` (benchmark/cellkit/
+    scene.py), its first view at the trained size binned at the cell's
+    instance cap and chunk, K1, and K2 on a seeded cotangent; then
+    instance_sum_report on K2's rows. Alone on a card:
+        python -c "import chip_smoke; chip_smoke.instance_sum_phase('tnt-wo-brdf')"
+    """
+    import math
+
+    import torch
+
+    from benchmark.cellkit.scene import arc_camera, make_state, trained_size
+    from gs2m_tpu_torch.core.camera import Camera, focal2fov
+    from gs2m_tpu_torch.core.gaussians import Gaussians
+    from gs2m_tpu_torch.ops.binning import bin_gaussians, num_tiles
+    from gs2m_tpu_torch.ops.blend import (blend_bwd, blend_fwd,
+                                          gather_instances)
+    from gs2m_tpu_torch.ops.projection import project
+    from gs2m_tpu_torch.ops.rasterize import build_features, pack_values
+
+    cfg = json.loads((HERE / "benchmark" / "configs" / f"{config}.json")
+                     .read_text())
+    dev = torch.device("cuda")
+    st = make_state(cfg, seed, dev)
+    p = st.params
+    g = Gaussians(xyz=p["xyz"], features_dc=p["f_dc"],
+                  features_rest=p["f_rest"], scaling=p["scaling"],
+                  rotation=p["rotation"], opacity=p["opacity"],
+                  albedo=p["albedo"], roughness=p["roughness"],
+                  metallic=p["metallic"], alive=st.alive,
+                  max_sh_degree=cfg["model"]["sh_degree"])
+    s = cfg["scene"]
+    w, h = trained_size(cfg)
+    R, T = arc_camera(-math.radians(s["arc_degrees"]) / 2,
+                      s["camera_distance"], s["camera_height"])
+    cam = Camera.create(R, T, focal2fov(s["focal_px"], s["image_width"]),
+                        focal2fov(s["focal_px"], s["image_height"]), w, h,
+                        device=dev)
+    chunk, cap = cfg["pipeline"]["chunk"], int(cfg["instance_cap"])
+    op = g.get_opacity[:, 0]
+    proj = project(g, cam, g.max_sh_degree, op)
+    b = bin_gaussians(proj, h, w, 16, cap, chunk, op)
+    values = pack_values(proj.colors, build_features(g, cam), 5)     # V=8
+    geom, vals = gather_instances(values, proj.means2d, proj.conics, op,
+                                  b.gid, b.is_null)
+    grid_y, grid_x = num_tiles(h, w, 16)
+    kw = dict(T=grid_y * grid_x, grid_x=grid_x, width=w, height=h, tile=16,
+              chunk=chunk)
+    k1 = blend_fwd(geom, vals, b.chunk_tile, **kw)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    Tn, V = kw["T"], vals.shape[0]
+    g_img = torch.randn(Tn + 1, V, 256, generator=gen, device=dev)
+    gT = torch.randn(Tn + 1, 1, 256, generator=gen, device=dev)
+    g_img[Tn] = 0.0
+    gT[Tn] = 0.0
+    k2 = blend_bwd(geom, vals, b.chunk_tile, k1.clogT, k1.cdone, g_img, gT,
+                   k1.fT, **kw)
+    del geom, vals, k1, g_img, gT
+    rep = {"cell": config, "width": w, "height": h,
+           "instances": int(b.num_instances), "aligned": int(b.num_aligned),
+           "dropped": int(b.dropped),
+           **instance_sum_report(k2.dvals, k2.dgeom, b, op.shape[0])}
+    print(f"[smoke] instance_sum at {config}'s layout: {json.dumps(rep)}")
+    return rep
 
 
 def k3_phase(ctx: dict) -> dict:
@@ -1426,6 +1548,8 @@ def quality_path(q_out: Path, card: str, gate_flags=()):
                                 - probe["gt_overflows"] + want_q["blend_obs"])
     want_q["preprocess_bwd"] = want_q["blend_bwd"]
     want_q["adam"] = it    # one update a step (csrc/adam.cu)
+    # The backward's reduce pair once per K2 launch.
+    want_q["instance_rows"] = want_q["instance_sum"] = want_q["blend_bwd"]
     print(f"[smoke] quality gate: {json.dumps(q)}")
     print(f"[smoke] quality gate (smoke scale): chamfer "
           f"{q['chamfer']['chamfer_mean']:.5f} (limit {CHAMFER_MAX}), test "
@@ -1503,6 +1627,9 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
     want["preprocess_fwd", 0] = (want["blend_fwd", 8]
                                  + want["blend_fwd", 16])
     want["preprocess_bwd", 0] = want["blend_bwd", 8] + want["blend_bwd", 16]
+    # The backward's reduce pair once per K2 launch, at K2's width.
+    for V in (8, 16):
+        want["instance_rows", V] = want["instance_sum", V] = want["blend_bwd", V]
     # Adam once a step, and once more for the light in a material step.
     want["adam", 0] = n_warm + 2 * n_mat
     m = mt.last_metrics
@@ -1603,7 +1730,8 @@ def material_path(root: Path, train_dir: Path, argv: list, card: str, dev):
              "blend_bwd": launches["blend_bwd", 16],
              "preprocess_fwd": launches["preprocess_fwd", 0],
              "preprocess_bwd": launches["preprocess_bwd", 0],
-             "adam": launches["adam", 0]})
+             "adam": launches["adam", 0],
+             "instance_sum": launches["instance_sum", 16]})
 
 
 def material_gate_path(out: Path, card: str) -> dict:
@@ -1887,6 +2015,7 @@ def dp_path(root: Path, train_dir: Path, card: str, dev, geo_ms: float):
     want["preprocess_fwd"] = want["blend_fwd"]
     want["preprocess_bwd"] = want["blend_bwd"]
     want["adam"] = TRAIN_ITERS    # one update a step
+    want["instance_rows"] = want["instance_sum"] = want["blend_bwd"]
     mean = one_process_mean_digest(train_dir, [r["first_step"] for r in first],
                                    dev)
     print(f"[smoke] dp-train: {DP_RANKS} ranks ({r0['backend']}, "
@@ -2098,9 +2227,11 @@ def sp_path(g, cam, scene_dir: Path, model_dir: Path, full_cap: int,
              "one-card assembly")
     if grad_launches != {"blend_fwd": SP_BANDS, "blend_bwd": SP_BANDS,
                          "blend_obs": 0, "preprocess_fwd": 1,
-                         "preprocess_bwd": 1, "adam": 0}:
+                         "preprocess_bwd": 1, "adam": 0,
+                         "instance_rows": SP_BANDS, "instance_sum": SP_BANDS}:
         fail(f"sp-grad launches {grad_launches}, expected {SP_BANDS} each of "
-             f"K1 and K2, one each of the preprocess pair and no update")
+             f"K1, K2 and the reduce pair, one each of the preprocess pair "
+             f"and no update")
     del g_full, g_sp, leaves
 
     # One band's shapes: band 1 (rows 304..607 at 1200 rows).
@@ -3134,6 +3265,11 @@ def main(argv=None) -> None:
     # cells' rows (the paths' records hold it on their own updates).
     for e in (19, 22):
         adam_phase(1 << e, args.seed)
+    # The backward's reduce pair against segment_sum's chain, and timed, at
+    # the DTU and TnT cells' layouts (every K2 phase below holds it too).
+    for config in ("dtu-wo-brdf", "tnt-wo-brdf"):
+        instance_sum_phase(config, args.seed)
+        torch.cuda.empty_cache()
 
     # --- phase 2: scene -------------------------------------------------------
     root = HERE / "build" / "smoke"
@@ -3263,6 +3399,7 @@ def main(argv=None) -> None:
     want["preprocess_fwd"] = want["blend_fwd"] + want["blend_obs"]
     want["preprocess_bwd"] = want["blend_bwd"]
     want["adam"] = TRAIN_ITERS    # one update a step
+    want["instance_rows"] = want["instance_sum"] = want["blend_bwd"]
     m = trainer.last_metrics
     loss = float(m["loss"])
     snap = train_model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
@@ -3431,7 +3568,7 @@ def main(argv=None) -> None:
     shiny_kernels = model_kernels("shiny-protocol", shiny["model"], 9,
                                   shiny["cap"], dev)
     shiny_launches = {name: shiny["by_width"].get((name, 16), 0)
-                      for name in ("blend_fwd", "blend_bwd")}
+                      for name in ("blend_fwd", "blend_bwd", "instance_sum")}
     shiny_launches.update({name: shiny["launches"][name]
                            for name in ("preprocess_fwd", "preprocess_bwd",
                                         "adam")})
@@ -3459,7 +3596,8 @@ def main(argv=None) -> None:
                 "blend_obs": "ops/blend_pallas.py:227",
                 "preprocess_fwd": "ops/projection.py:132",
                 "preprocess_bwd": "ops/projection.py:132",
-                "adam": "train/optim.py:42"}
+                "adam": "train/optim.py:42",
+                "instance_sum": "ops/blend_pallas.py:513"}
     records = []
     for cell, reports, path_launches in (
             ("train-full", train_kernels, train_launches),
@@ -3487,6 +3625,11 @@ def main(argv=None) -> None:
             ("shiny-protocol", shiny_kernels, shiny_launches)):
         rows = [(name, cell, rep, path_launches[name])
                 for name, rep in reports.items() if name != "adam"]
+        # The reduce pair, held and timed in each K2 phase, as one record.
+        if "blend_bwd" in reports:
+            rows.append(("instance_sum", cell,
+                         reports["blend_bwd"]["instance_sum"],
+                         path_launches["instance_sum"]))
         adam = reports.get("adam", {})
         if adam and all(r["on_path"] for r in adam.values()):
             tapped = sum(r["launches"] for r in adam.values())

@@ -1,9 +1,10 @@
 """Launch counts of the port's CUDA kernels (csrc/*.cu).
 
 Every wrapper that launches one of them adds one to LAUNCHES per launch, and
-nowhere else: ops/blend.py's K1-K3, ops/preprocess.py's preprocess pair and
-train/optim.py's Adam. `launch_counts()` is how a run shows that its path
-went through the kernels (ops/blend.py re-exports all three names).
+nowhere else: ops/blend.py's K1-K3 and the backward's per-Gaussian reduce
+pair, ops/preprocess.py's preprocess pair and train/optim.py's Adam.
+`launch_counts()` is how a run shows that its path went through the kernels
+(ops/blend.py re-exports all three names).
 """
 from __future__ import annotations
 
@@ -13,13 +14,14 @@ import os
 import sys
 from collections import Counter
 
-# Keyed by (kernel, value width V): V is the blend kernels' value rows, 0 for
-# K3 (which blends none), the preprocess pair ("preprocess_fwd",
-# "preprocess_bwd") and "adam".
+# Keyed by (kernel, value width V): V is the blend kernels' value rows (and
+# the reduce pair's, "instance_rows" and "instance_sum", which sum K2's 8+V
+# channels), 0 for K3 (which blends none), the preprocess pair
+# ("preprocess_fwd", "preprocess_bwd") and "adam".
 LAUNCHES: Counter = Counter()
 
 KERNELS = ("blend_fwd", "blend_bwd", "blend_obs", "preprocess_fwd",
-           "preprocess_bwd", "adam")
+           "preprocess_bwd", "adam", "instance_rows", "instance_sum")
 
 
 def launch_counts() -> dict[str, int]:

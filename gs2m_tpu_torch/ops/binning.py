@@ -17,14 +17,22 @@ layout, equal to the JAX package's element for element:
 * per-tile segments are padded to a multiple of `chunk`, so the blend
   kernel sees a regular (n_chunks, chunk) layout with one tile per chunk;
   the aligned layout is built by the shift scatter (per-tile shift diffs at
-  the segment starts + one cumsum)
+  the segment starts + one cumsum) of the expansion slots, `exp_slot`;
+  `gid` is a gather through it and `is_null` its unfilled slots
 * fixed instance capacity with an overflow counter, `dropped`, which the
   caller must surface (the render app doubles the cap on it)
 
-The backward (ops/blend.py) groups per-instance gradients by a stable sort
-on the Gaussian id, so it needs no per-Gaussian instance counts: the JAX
-package's per-Gaussian fields, which its backward's reduce reads, have no
-counterpart here.
+The backward (ops/blend.py) sums each Gaussian's per-instance gradients,
+so the layout also carries the map from aligned slots back to the
+expansion (`exp_slot`, `exp_start`, `exp_kept`; port-only fields). A
+Gaussian's expansion slots walk its tile rectangle row-major, so in
+ascending tile id; the aligned layout is tile-major and holds a Gaussian at
+most once a tile. So a Gaussian's kept instances in expansion order are its
+aligned slots in ascending order, the order in which a stable sort on the
+Gaussian id (the plain reduction, ops/blend.py::segment_sum) sums them: the
+card's reduce walks the expansion and needs no sort. The JAX package's
+per-Gaussian counts, which its backward's reduce reads, have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -50,6 +58,16 @@ class Binning(NamedTuple):
     # () int32 — instances kept by the cull; None in a layout made from the
     # JAX package's Binning, which has no such count.
     num_kept: torch.Tensor | None = None
+    # The expansion map the card's backward reduce reads; None in a layout
+    # made from the JAX package's Binning, which has none.
+    # (I,) int32 expansion slot of each aligned slot; I for null slots.
+    exp_slot: torch.Tensor | None = None
+    # (C+1,) int32 each Gaussian's first expansion slot clamped to I, then
+    # the total expansion (clamped).
+    exp_start: torch.Tensor | None = None
+    # (I,) bool expansion slots that hold an aligned slot (not culled, not
+    # dropped by either overflow).
+    exp_kept: torch.Tensor | None = None
 
 
 def num_tiles(height: int, width: int, tile: int) -> tuple[int, int]:
@@ -130,11 +148,10 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     tile_id = torch.where(keep, ty * grid_x + tx, T).to(I32)
     depth = torch.where(keep, rows[3], torch.inf)
 
-    # --- stable (tile, depth) sort with the Gaussian id as payload ------------
+    # --- stable (tile, depth) sort; the permutation carries the slot ---------
     key = (tile_id.long() << 32) | depth.view(I32).long()
     sorted_key, perm = torch.sort(key, stable=True)
     tile_sorted = (sorted_key >> 32).to(I32)
-    gid_sorted = g[perm]
 
     # --- per-tile ranges: T+1 binary searches over the sorted tiles -------------
     start_fill = torch.searchsorted(
@@ -155,22 +172,27 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
     n_chunks = I // chunk
     t_of_c = torch.clamp(_cumsum(_scatter_add(astart // chunk, 1, n_chunks)) - 1,
                          0, T - 1).long()
-    astart_c = astart[t_of_c, None].expand(n_chunks, chunk).reshape(-1)
-    counts_c = counts[t_of_c, None].expand(n_chunks, chunk).reshape(-1)
-    in_tile = (slots < atotal) & (slots - astart_c < counts_c)
 
     # Aligned layout via the shift scatter: dst = sorted position +
     # (astart - start)[tile]; the shift is constant over a tile's sorted
     # segment, so scatter its per-tile diffs at the segment starts and carry
-    # it forward with one cumsum. Culled rows and dst >= I drop;
-    # chunk-padding slots keep gid 0.
+    # it forward with one cumsum. Culled rows and dst >= I drop. What is
+    # scattered is the expansion map: each aligned slot's expansion slot.
+    # The rows below a tile's count fill its aligned segment slot for slot,
+    # so the slots left at I are exactly the null ones (chunk padding, the
+    # cap's tail), which take gid 0. An expansion slot is kept where its
+    # sorted row lands in the layout (a permutation's scatter: no
+    # duplicates).
     shift = astart - start
     sdiff = torch.cat([shift[:1], shift[1:] - shift[:-1]])
     shift_slot = _cumsum(_scatter_add(start, sdiff, I))
     dst = torch.where(tile_sorted < T, slots + shift_slot, I)
-    gid = torch.zeros(I + 1, dtype=I32, device=dev)
-    gid[torch.clamp_max(dst, I).long()] = gid_sorted
-    gid = torch.where(in_tile, gid[:I], 0)
+    exp_slot = torch.full((I + 1,), I, dtype=I32, device=dev)
+    exp_slot[torch.clamp_max(dst, I).long()] = perm.to(I32)
+    exp_slot = exp_slot[:I]
+    exp_kept = torch.zeros(I, dtype=torch.bool, device=dev)
+    exp_kept[perm] = dst < I
+    gid = torch.index_select(torch.cat([g, g.new_zeros(1)]), 0, exp_slot)
 
     chunk_starts = torch.arange(n_chunks, dtype=I32, device=dev) * chunk
     chunk_tile = torch.where(chunk_starts < atotal, t_of_c.to(I32), T)
@@ -182,11 +204,14 @@ def bin_gaussians(proj: Projected, height: int, width: int, tile: int,
 
     return Binning(
         gid=gid,
-        is_null=~in_tile,
+        is_null=exp_slot == I,
         chunk_tile=chunk_tile,
         tile_nonempty=(counts > 0) & covered[:T],
         num_instances=total.to(I32),
         dropped=(dropped_expansion + dropped_align).to(I32),
         num_aligned=torch.clamp_max(atotal, I).to(I32),
         num_kept=num_kept,
+        exp_slot=exp_slot,
+        exp_start=torch.clamp_max(torch.cat([offsets, total[None]]), I),
+        exp_kept=exp_kept,
     )

@@ -128,12 +128,17 @@ The three kernels share one per-(instance, pixel) step, the gated alpha
 and the recurrence, in csrc/blend_common.cuh; their plain versions share
 its PyTorch twin, `chunk_walk`.
 
-The per-Gaussian reduction of K2's per-instance rows (`segment_sum`) is
-torch code, as it is XLA code in the JAX package: a stable sort on the
-Gaussian id (null slots keyed C) and torch.segment_reduce, so each
-Gaussian's segment is summed on its own — never as the difference of two
-global prefixes, whose rounding at ULP(global sum) breached the JAX
-package's grad gate (blend_pallas.py:574-589). Deterministic: no atomics.
+The per-Gaussian reduction of K2's per-instance rows (`instance_sum`) sums
+each Gaussian's segment on its own, in slot order from +0 — never as the
+difference of two global prefixes, whose rounding at ULP(global sum)
+breached the JAX package's grad gate (blend_pallas.py:574-589). Its plain
+version, `segment_sum` (the CPU path), is torch code, as the reduce is XLA
+code in the JAX package: a stable sort on the Gaussian id (null slots keyed
+C) and torch.segment_reduce. On the card it is csrc/instance_sum.cu, two
+kernels that walk the binning's expansion order instead of sorting (the
+design note and bound are in that source; the order argument in
+ops/binning.py): bit-equal to `segment_sum` on the same rows.
+Deterministic on both: no atomics.
 """
 from __future__ import annotations
 
@@ -413,14 +418,23 @@ def blend_obs_plain(geom: torch.Tensor, chunk_tile: torch.Tensor, *, T: int,
                            tile=tile, chunk=chunk).obs
 
 
+# C entry gs2m_<name> -> (its source csrc/<source>.cu, pointer, int and
+# float arguments before the stream).
+_ENTRIES = {"blend_fwd": ("blend_fwd", 8, 7, 3),
+            "blend_bwd": ("blend_bwd", 10, 7, 2),
+            "blend_obs": ("blend_obs", 3, 6, 4),
+            "instance_rows": ("instance_sum", 4, 2, 0),
+            "instance_sum": ("instance_sum", 4, 2, 0)}
+
+
 @functools.cache
 def _kernel(name: str):
-    """The C entry of csrc/<name>.cu, built and loaded at first use."""
+    """The C entry gs2m_<name>, built from its source and loaded at first
+    use."""
     from gs2m_tpu_torch import _build
 
-    n_ptr, n_int, n_float = {"blend_fwd": (8, 7, 3), "blend_bwd": (10, 7, 2),
-                             "blend_obs": (3, 6, 4)}[name]
-    fn = getattr(_build.library(name), f"gs2m_{name}")
+    source, n_ptr, n_int, n_float = _ENTRIES[name]
+    fn = getattr(_build.library(source), f"gs2m_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_float] * n_float + [ctypes.c_void_p])
@@ -452,6 +466,12 @@ def _check(kernel: str, tile: int, chunk: int, V: int, specs) -> None:
         raise ValueError(f"{kernel} kernel takes tile 16, V in (8, 16) and a "
                          f"chunk <= 1024 that is a multiple of 32; got tile "
                          f"{tile}, V {V}, chunk {chunk}")
+    _check_tensors(kernel, specs)
+
+
+def _check_tensors(kernel: str, specs) -> None:
+    """Raise unless each (name, tensor, dtype, shape) is contiguous, of its
+    type and shape, on the first tensor's device."""
     dev = specs[0][1].device
     for name, x, dt, shape in specs:
         if (x.device != dev or x.dtype != dt or tuple(x.shape) != shape
@@ -633,6 +653,68 @@ def retile(g_img, g_fT, grid_y: int, grid_x: int, tile: int):
             torch.cat([gt.reshape(T, 1, P), g_fT.new_zeros(1, 1, P)]))
 
 
+def instance_sum_plain(dvals: torch.Tensor, dgeom: torch.Tensor,
+                       binning: Binning, C: int) -> torch.Tensor:
+    """`instance_sum` in torch: `segment_sum` of torch.cat([dvals, dgeom])
+    keyed by the layout's gid (C at null slots)."""
+    key = torch.where(binning.is_null, C, binning.gid)
+    return segment_sum(torch.cat([dvals, dgeom]), key, C).T
+
+
+def _instance_sum_card(dvals, dgeom, exp_slot, exp_start, exp_kept,
+                       C: int) -> torch.Tensor:
+    """The CUDA kernels of the operator gs2m::instance_sum: pass 1 writes
+    each kept slot's 8+V channels as a row at its expansion slot, pass 2
+    sums each Gaussian's rows (csrc/instance_sum.cu)."""
+    V, I = dvals.shape
+    rows = torch.empty(I, V + 8, device=dvals.device)
+    out = torch.empty(C, V + 8, device=dvals.device)
+    _launch("instance_rows", dvals, dgeom, exp_slot, rows, I, V, V=V)
+    _launch("instance_sum", exp_start, exp_kept, rows, out, C, V, V=V)
+    return out
+
+
+# The pair is an operator of PyTorch's dispatcher, so that its profiler ties
+# the kernels' device time to it, and so to the backward's range, as it tied
+# the torch chain's that the pair replaced (a kernel launched through ctypes
+# outside any op is tied to no range). Registered for CUDA tensors only.
+_LIB = torch.library.Library("gs2m", "FRAGMENT")
+_LIB.define("instance_sum(Tensor dvals, Tensor dgeom, Tensor exp_slot, "
+            "Tensor exp_start, Tensor exp_kept, int C) -> Tensor")
+_LIB.impl("instance_sum", _instance_sum_card, "CUDA")
+
+
+def _launch_instance_sum(dvals, dgeom, binning: Binning,
+                         C: int) -> torch.Tensor:
+    """The kernel pair on the card, after the checks of what it takes."""
+    V, I = dvals.shape
+    if binning.exp_slot is None:
+        raise ValueError("instance_sum on the card reads the binning's "
+                         "expansion map (exp_slot, exp_start, exp_kept), "
+                         "which this Binning does not carry")
+    if V not in (8, 16):
+        raise ValueError(f"instance_sum kernels take V in (8, 16); got {V}")
+    _check_tensors("instance_sum", (
+        ("dvals", dvals, torch.float32, (V, I)),
+        ("dgeom", dgeom, torch.float32, (8, I)),
+        ("exp_slot", binning.exp_slot, torch.int32, (I,)),
+        ("exp_start", binning.exp_start, torch.int32, (C + 1,)),
+        ("exp_kept", binning.exp_kept, torch.bool, (I,))))
+    return torch.ops.gs2m.instance_sum(dvals, dgeom, binning.exp_slot,
+                                       binning.exp_start, binning.exp_kept, C)
+
+
+def instance_sum(dvals: torch.Tensor, dgeom: torch.Tensor, binning: Binning,
+                 C: int) -> torch.Tensor:
+    """Per-Gaussian sums (C, V+8), contiguous, of K2's per-instance rows
+    dvals (V, I) and dgeom (8, I) over the layout's non-null slots, channels
+    in torch.cat([dvals, dgeom])'s order. On CUDA tensors the kernel pair,
+    which reads the binning's expansion map (or raises); the plain version
+    only for CPU tensors. Bit-equal to each other on the same rows."""
+    return _dispatch("instance_sum", _launch_instance_sum, instance_sum_plain,
+                     dvals, dgeom, binning, C)
+
+
 def segment_sum(per_inst: torch.Tensor, key: torch.Tensor,
                 C: int) -> torch.Tensor:
     """Per-Gaussian sums (K, C) of per-instance rows (K, I), grouped by key
@@ -670,8 +752,9 @@ def _observe_counts(obs: torch.Tensor, binning: Binning, C: int) -> torch.Tensor
 
 class _BlendTiles(torch.autograd.Function):
     """gather -> K1 -> untile -> observe scatter; backward retile -> K2 ->
-    per-Gaussian segment sums. The outputs are (image, final_T, observe);
-    observe is not differentiable and a missing cotangent counts as 0."""
+    per-Gaussian sums (instance_sum). The outputs are (image, final_T,
+    observe); observe is not differentiable and a missing cotangent counts
+    as 0."""
 
     @staticmethod
     def forward(ctx, values, means2d, conics, opacities, abs_sink,
@@ -688,7 +771,13 @@ class _BlendTiles(torch.autograd.Function):
         observe = _observe_counts(raw.obs, binning, values.shape[0])
         ctx.mark_non_differentiable(observe)
         ctx.save_for_backward(geom, vals, raw.clogT, raw.cdone, raw.fT)
-        ctx.binning = binning
+        # The backward keeps only what its path reads: the chunks' tiles and,
+        # for the reduce, the expansion map on the card, gid and is_null on
+        # the CPU.
+        keep = ("chunk_tile",) + (("exp_slot", "exp_start", "exp_kept")
+                                  if values.is_cuda else ("gid", "is_null"))
+        ctx.binning = Binning(**{f: getattr(binning, f) if f in keep else None
+                                 for f in Binning._fields})
         ctx.C = values.shape[0]
         ctx.dims = dict(T=T, grid_x=grid_x, width=width, height=height,
                         tile=tile, chunk=chunk)
@@ -709,11 +798,9 @@ class _BlendTiles(torch.autograd.Function):
                                  d["tile"])
         raw = blend_bwd(geom, vals, b.chunk_tile, clogT, cdone, g_img_t,
                         g_fT_t, fT, **d)
-        C = ctx.C
-        key = torch.where(b.is_null, C, b.gid)
-        acc = segment_sum(torch.cat([raw.dvals, raw.dgeom]), key, C)  # (V+8, C)
-        return (acc[:V].T, acc[V:V + 2].T, acc[V + 2:V + 5].T, acc[V + 5],
-                acc[V + 6:V + 8].T, None, None, None, None, None)
+        acc = instance_sum(raw.dvals, raw.dgeom, b, ctx.C)          # (C, V+8)
+        return (acc[:, :V], acc[:, V:V + 2], acc[:, V + 2:V + 5], acc[:, V + 5],
+                acc[:, V + 6:V + 8], None, None, None, None, None)
 
 
 def blend_tiles(values, means2d, conics, opacities, binning: Binning,

@@ -2,10 +2,13 @@
 
 Both packages bin the SAME Projected (the JAX one, carried over), so any
 difference is the binning's own. The port keeps the JAX package's layout
-fields and adds `num_kept`; the JAX package's per-Gaussian counts, which
-only its backward reads, are not ported. On the four cases of
-tests/test_binning_fuzz.py the layout, the kept count and the blend on the
-layout (K1's and K2's plain versions) are held against the JAX package's.
+fields and adds `num_kept` and the expansion map (`exp_slot`, `exp_start`,
+`exp_kept`) that the card's backward reduce reads; the JAX package's
+per-Gaussian counts, which only its backward reads, are not ported. On the
+four cases of tests/test_binning_fuzz.py the layout, the kept count and the
+blend on the layout (K1's and K2's plain versions) are held against the JAX
+package's; on those, an overflowed cap and an empty scene the map is held
+to the layout and to the order in which segment_sum sums.
 """
 import dataclasses
 
@@ -41,8 +44,10 @@ def projected_pair(seed, n=120, size=(64, 48), boost=4.0):
     return jp, tp, op, torch.from_numpy(np.array(op))
 
 
-# The JAX package's Binning fields the port keeps (all but num_kept).
-SHARED = tuple(f for f in TBinning._fields if f != "num_kept")
+# The JAX package's Binning fields the port keeps (all but the port-only
+# num_kept and expansion map).
+PORT_ONLY = ("num_kept", "exp_slot", "exp_start", "exp_kept")
+SHARED = tuple(f for f in TBinning._fields if f not in PORT_ONLY)
 
 
 def port_binning(jb) -> TBinning:
@@ -199,3 +204,64 @@ def test_fuzz_blend_matches_jax(seed, n, opaque, cap_slack):
         rep = grad_gate(got.numpy(), np.asarray(want))
         assert rep["pass"], (name, rep)
     assert float(grads[3].abs().max()) > 0
+
+
+# --- the expansion map --------------------------------------------------------
+
+
+def map_case(which: str):
+    """(Projected, opacities, H, W, tile, chunk, cap) of one fuzz case at
+    its own cap ("fuzz<seed>"), an overflowed cap or an empty scene."""
+    if which.startswith("fuzz"):
+        case = next(c for c in CASES if f"fuzz{c[0]}" == which)
+        *_, tp, _, top, (H, W, tile, chunk, _, I) = fuzz_case(*case)
+        return tp, top, H, W, tile, chunk, I
+    if which == "overflow":
+        _, tp, _, top = projected_pair(2, size=(64, 48), boost=8.0)
+        return tp, top, 48, 64, 16, 64, 6 * 64
+    _, tp, _, top = projected_pair(3)
+    tp = tp._replace(tiles_touched=torch.zeros_like(tp.tiles_touched),
+                     valid=torch.zeros_like(tp.valid))
+    return tp, top, 48, 64, 16, 64, 2 ** 10
+
+
+MAP_IDS = [f"fuzz{c[0]}" for c in CASES] + ["overflow", "empty"]
+
+
+@pytest.mark.parametrize("which", MAP_IDS)
+def test_expansion_map_walks_the_segment_sum_order(which):
+    """exp_slot puts every laid-out slot in its Gaussian's expansion range;
+    exp_kept marks exactly the expansion slots some aligned slot points to;
+    and each Gaussian's kept expansion slots, walked in order, are its
+    aligned slots in the order of segment_sum's stable sort on the gid."""
+    tp, top, H, W, tile, chunk, I = map_case(which)
+    b = tbin(tp, H, W, tile, I, chunk, top)
+    C = tp.means2d.shape[0]
+    slot, start, kept = b.exp_slot.long(), b.exp_start.long(), b.exp_kept
+    assert b.exp_slot.dtype == torch.int32 and b.exp_start.dtype == torch.int32
+    assert kept.dtype == torch.bool
+    assert slot.shape == (I,) and start.shape == (C + 1,) and kept.shape == (I,)
+    laid = ~b.is_null
+    assert torch.equal(slot == I, b.is_null)
+    g = b.gid.long()[laid]
+    e = slot[laid]
+    assert bool(((start[g] <= e) & (e < start[g + 1])).all())
+    assert torch.equal(start[-1], torch.clamp_max(b.num_instances, I).long())
+    assert bool((start[1:] >= start[:-1]).all()) and int(start[0]) == 0
+    pointed = torch.zeros(I, dtype=torch.bool)
+    pointed[e] = True
+    assert torch.equal(kept, pointed)
+    assert int(e.unique().numel()) == int(laid.sum())
+    # The inverse map: expansion slot -> aligned slot, for kept slots.
+    aligned_of = torch.full((I,), -1, dtype=torch.long)
+    aligned_of[e] = torch.nonzero(laid)[:, 0]
+    key = torch.where(b.is_null, C, b.gid).long()
+    order = torch.sort(key, stable=True)[1][:int(laid.sum())]
+    # The kept expansion slots in ascending order: each Gaussian's range in
+    # turn, the Gaussians in id order, so this is every per-Gaussian walk.
+    assert torch.equal(aligned_of[kept], order)
+    if which == "overflow":
+        assert int(b.dropped) > 0
+        assert int(kept.sum()) < int(b.num_kept)
+    if which == "empty":
+        assert not bool(kept.any()) and int(start[-1]) == 0

@@ -16,7 +16,8 @@ on the card: forward outputs (integers equal) on the CPU tests' edge scene,
 a small scene and the benchmark's 2^19-row state, backward at the gate,
 and its launches per train step; and the Adam kernel (csrc/adam.cu)
 bit-equal to the eager loop on the same card tensors, and its launches per
-update and per train step.
+update and per train step; and the backward's per-Gaussian reduce pair
+(csrc/instance_sum.cu) bit-equal to segment_sum's chain on K2's rows.
 
 Marked `cuda`; each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_cuda.py -q
@@ -241,6 +242,107 @@ def test_k2_matches_plain_version(cuda, case):
         assert int(b.dropped) > 0
     if case[0] == 6:
         assert float(args[0][5].max()) > 0.99   # opacity row past the clamp
+
+
+# K2's rows at V=16 (case0), V=8 on the train path's chunk (case7) and on an
+# overflowed layout (case4, V=16).
+SUM_CASES = [c for c in CASES if c[0] in (0, 7, 4)]
+
+
+@pytest.mark.parametrize("case", SUM_CASES, ids=[f"case{c[0]}" for c in SUM_CASES])
+def test_instance_sum_bit_equal_to_segment_sum(cuda, case):
+    """The reduce pair's per-Gaussian sums of a real render's K2 rows equal
+    segment_sum's bit for bit, twice, with one launch of each kernel a
+    call."""
+    args, b, kw = k2_inputs(case, cuda)
+    raw = blend.blend_bwd(*args, **kw)
+    V, C = raw.dvals.shape[0], b.exp_start.shape[0] - 1
+    n0 = {k: blend.LAUNCHES[k, V] for k in ("instance_rows", "instance_sum")}
+    got = blend.instance_sum(raw.dvals, raw.dgeom, b, C)
+    torch.cuda.synchronize()
+    assert {k: blend.LAUNCHES[k, V] - n for k, n in n0.items()} == {
+        "instance_rows": 1, "instance_sum": 1}
+    again = blend.instance_sum(raw.dvals, raw.dgeom, b, C)
+    ref = blend.instance_sum_plain(raw.dvals, raw.dgeom, b, C)
+    assert got.shape == (C, V + 8) and got.is_contiguous()
+    assert torch.equal(got, ref)
+    assert torch.equal(again, got)
+    assert bool((got != 0).any())
+    if case[0] == 4:
+        assert int(b.dropped) > 0
+
+
+def test_instance_sum_refuses_a_binning_without_the_map(cuda):
+    args, b, kw = k2_inputs(CASES[7], cuda)
+    raw = blend.blend_bwd(*args, **kw)
+    bare = b._replace(exp_slot=None, exp_start=None, exp_kept=None)
+    with pytest.raises(ValueError):
+        blend.instance_sum(raw.dvals, raw.dgeom, bare,
+                           b.exp_start.shape[0] - 1)
+
+
+def backward_reduce_profile() -> dict:
+    """One render's backward on the card under torch.profiler, inside a
+    step/backward range: the reduce pair's kernel time and its operator's
+    device time, in microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    dev = torch.device("cuda")
+    params, W, H, V, chunk, cap = case_scene(CASES[7])
+    g = Gaussians.from_numpy(*params, device=dev)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in g.params_dict().items()}
+    cam = camera(W, H, dev)
+
+    def loss():
+        pkg = render(g.with_params(leaves), cam, torch.zeros(3, device=dev),
+                     2, chunk=chunk, instance_cap=cap)
+        return pkg["render"].square().sum()
+
+    loss().backward()
+    torch.cuda.synchronize()
+    out = loss()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("step/backward"):
+            out.backward()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"kernel_us": sum(e.device_time_total for e in events
+                             if e.device_type == DeviceType.CUDA
+                             and ("rows_kernel" in e.name
+                                  or "sum_kernel" in e.name)),
+            "op_us": [e.device_time_total for e in events
+                      if e.device_type == DeviceType.CPU
+                      and e.name == "gs2m::instance_sum"]}
+
+
+def test_instance_sum_time_counts_under_the_backward_range(cuda):
+    """The pair is launched inside the operator gs2m::instance_sum, so the
+    profiler ties both kernels' device time to that op and to the range
+    around the backward, where the benchmark reads the stage's device ms.
+    Profiled in a process of its own: a profiler session over a backward in
+    this process left a later session in it (the Adam test's) with no
+    kernel events."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here), str(here.parent), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, test_torch_cuda as t; "
+         "print(json.dumps(t.backward_reduce_profile()))"],
+        cwd=here.parent, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    rep = json.loads(run.stdout.strip().splitlines()[-1])
+    assert rep["kernel_us"] > 0 and len(rep["op_us"]) == 1, rep
+    assert rep["op_us"][0] == pytest.approx(rep["kernel_us"], rel=1e-6)
 
 
 def skipped_chunks(fwd, chunk_tile, kw) -> int:
