@@ -249,14 +249,12 @@ def save_material_maps(model_cfg, dirs, stem, cam, pkg, light_state,
                       gamma=model_cfg.gamma, mips=mips)
     pbr_img = np.clip(ppkg["render_rgb"].cpu().numpy(), 0, 1).transpose(2, 0, 1)
     bg_np = bg.cpu().numpy()[:, None, None]
-    if model_cfg.mask_gt or model_cfg.white_background:
-        mask = (alpha_masks[i] > 0.5 if alpha_masks is not None
-                else pkg["normal_mask"].cpu().numpy())
-        fill = 0.0 if model_cfg.mask_gt else bg_np
+    masked = model_cfg.mask_gt or model_cfg.white_background
+    if masked and alpha_masks is not None:
+        mask = alpha_masks[i] > 0.5
     else:
         mask = pkg["normal_mask"].cpu().numpy()
-        fill = bg_np
-    save_image(dirs["render"] / f"{stem}.png", np.where(mask, pbr_img, fill))
+    save_image(dirs["render"] / f"{stem}.png", np.where(mask, pbr_img, bg_np))
 
     def comp(x):
         if model_cfg.gamma:

@@ -12,7 +12,11 @@ The nearby view is chosen on the host by the trainer (its numpy
 Generator, as for the nearest view), so a view without a nearby camera
 skips the neighbor render outright, the semantics of the JAX package's
 lax.cond. The neighbor render runs without gradient: the V=8 geometry
-render, kernel K1 only.
+render, kernel K1 only, on the step's background.
+
+With the span recorder on (utils/spans.py), each material step logs the
+pixels the pass shades (`pbr_pixels`, the whole frame) and those inside
+the surface mask that the PBR loss keeps (`pbr_fg_pixels`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from gs2m_tpu_torch.models import losses as L
 from gs2m_tpu_torch.pbr import cubemap as cm
 from gs2m_tpu_torch.pbr import shade as sh
 from gs2m_tpu_torch.train.optim import adam_init, adam_update
+from gs2m_tpu_torch.utils import spans
 from gs2m_tpu_torch.utils.spans import STAGES, span
 
 
@@ -110,15 +115,22 @@ def make_pbr_fns(base_res: int = 512, seed: int = 0, light=None,
     def material_losses(g, cam, pkg, gt, light_base, opt, model_cfg,
                         nearby_cam, has_nearby: bool, gray_ref, gray_nea,
                         ncc_scale, active_sh_degree, render_kw,
-                        generator=None, indices=None):
+                        generator=None, indices=None, bg=None):
+        """`bg`: the step's background (black when None), which the nearby
+        view's render composites on."""
         from gs2m_tpu_torch.models.render import render as render_fn
 
+        normal_mask = pkg["normal_mask"]
         with span(STAGES["pbr"]):
             pbr_pkg = pbr_render(light_base, cam, pkg, brdf_lut,
                                  metallic_trained=model_cfg.metallic,
                                  gamma=model_cfg.gamma)
+            # The pixels the pass shades and those of them the loss keeps;
+            # the sum only while the recorder is on (a launch otherwise).
+            spans.count("pbr_pixels", cam.height * cam.width)
+            if spans.recording():
+                spans.count("pbr_fg_pixels", normal_mask.sum())
 
-        normal_mask = pkg["normal_mask"]
         render_pbr = L.clip(pbr_pkg["render_rgb"].permute(2, 0, 1), 0.0, 1.0)
         render_pbr = torch.where(normal_mask, render_pbr, 0.0)
 
@@ -138,7 +150,8 @@ def make_pbr_fns(base_res: int = 512, seed: int = 0, light=None,
         Lr = gt.new_zeros(())
         if has_nearby:
             with torch.no_grad(), span(STAGES["render"]):
-                npkg = render_fn(g, nearby_cam, gt.new_zeros(3),
+                npkg = render_fn(g, nearby_cam,
+                                 gt.new_zeros(3) if bg is None else bg,
                                  active_sh_degree, geometry_stage=True,
                                  **render_kw)
             Lr = L.roughness_loss(opt, cam, nearby_cam, pkg, npkg, gray_ref,

@@ -66,7 +66,8 @@ def _render_guarded(trainer, camera, material_stage: bool = False):
     kw = dict(tile=trainer.pipe.tile, chunk=trainer.pipe.chunk,
               z_depth=trainer.pipe.z_depth,
               blend_metallic=trainer.model_cfg.metallic)
-    bg = torch.zeros(3, device=trainer.device)
+    bg = torch.full((3,), float(trainer.model_cfg.white_background),
+                    device=trainer.device)
     for _ in range(4):
         pkg = render(trainer.gaussians, camera, bg, trainer.active_sh_degree,
                      geometry_stage=True, material_stage=material_stage,
@@ -108,6 +109,8 @@ def evaluate_views(trainer, cameras, gt_images, n_views: int | None = None,
                                 np.clip(env, 0, 1).transpose(2, 0, 1))
 
     n = len(cameras) if n_views is None else min(n_views, len(cameras))
+    bg_np = np.full((3, 1, 1), float(trainer.model_cfg.white_background),
+                    np.float32)
     psnrs, l1s, psnrs_pbr, l1s_pbr = [], [], [], []
     for i in range(n):
         pkg = _render_guarded(trainer, cameras[i], material_stage)
@@ -123,10 +126,10 @@ def evaluate_views(trainer, cameras, gt_images, n_views: int | None = None,
                               trainer.pbr_fns["brdf_lut"],
                               metallic_trained=trainer.model_cfg.metallic,
                               gamma=trainer.model_cfg.gamma, mips=mips)
-            # The PBR image over the (zero) background outside the surface
-            # mask.
+            # The PBR image over the background outside the surface mask.
             pbr_img = np.where(_numpy(pkg["normal_mask"]), np.clip(
-                _numpy(ppkg["render_rgb"]).transpose(2, 0, 1), 0, 1), 0.0)
+                _numpy(ppkg["render_rgb"]).transpose(2, 0, 1), 0, 1),
+                bg_np)
             mse_p = float(np.mean((pbr_img - gt) ** 2))
             psnrs_pbr.append(20 * np.log10(1.0 / np.sqrt(max(mse_p, 1e-12))))
             l1s_pbr.append(float(np.mean(np.abs(pbr_img - gt))))

@@ -22,6 +22,13 @@ one instance cap, grown on overflow at the 100-iteration boundaries. Both
 flags stay in PipelineConfig for cfg_args.json compatibility and have no
 effect here, like `use_pallas`.
 
+Every render of the step composites on the configured background: white
+under `white_background`, black otherwise, as GS-2M's own trainer does.
+The JAX package's trainer renders on black whatever the flag, so its
+white-background protocols (Shiny and Glossy Blender, whose ground truth
+the scene composites on white) train against a background they cannot
+match; on black the two agree.
+
 Data parallelism (parallel/dp.py): with `data_parallel`, each rank of a
 torch.distributed group trains on its own view of a D-view batch per
 step and the step reduces the gradients, statistics and metrics over the
@@ -97,7 +104,7 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                        nearby_idx: int = 0, has_nearby: bool = False):
         cam = scene.train_cameras[view_idx]
         gt = scene.gt_images[view_idx]
-        bg = gt.new_zeros(3)
+        bg = gt.new_ones(3) if model_cfg.white_background else gt.new_zeros(3)
         g = gaussians.with_params(params)
         with span(STAGES["render"]):
             pkg = render(g, cam, bg, active_sh_degree,
@@ -143,7 +150,7 @@ def make_view_objective(model_cfg: ModelConfig, pipe: PipelineConfig,
                 scene.train_cameras[nearby_idx], has_nearby,
                 scene.gray_images[view_idx], scene.gray_images[nearby_idx],
                 scene.ncc_scale, active_sh_degree, render_kw,
-                generator=generator)
+                generator=generator, bg=bg)
             loss = loss + Lmat
 
         aux = {"Lrgb": Lrgb, "Lgeo": Lgeo, "Lmat": Lmat, "radii": pkg["radii"],

@@ -152,3 +152,39 @@ def test_material_gate_writes_every_key(tmp_path):
     np.testing.assert_allclose(
         material_gate.analytic_env(np.array([[0.0, -1.0, 0.0]])),
         [[1.62, 1.42, 1.02]])
+
+
+@pytest.mark.parametrize("white", [True, False])
+def test_pbr_render_under_mask_gt_is_filled_with_the_background(tmp_path, white):
+    """With --mask_gt the PBR render keeps the GT mask's pixels and fills
+    the rest with the model's background: white under --white_background,
+    where the ground truth is composited on white, else black."""
+    from gs2m_tpu_torch.core.camera import Camera
+    from gs2m_tpu_torch.core.config import ModelConfig as TModelConfig
+    from gs2m_tpu_torch.pbr import cubemap as cmod
+    from gs2m_tpu_torch.pbr import shade as smod
+
+    H, W = 12, 16
+    rng = np.random.default_rng(3)
+    cam = Camera.create(np.eye(3), np.array([0.0, 0.0, 4.0]), 0.8, 0.6, W, H,
+                        device="cpu")
+    t = lambda *s: torch.from_numpy(rng.uniform(0.1, 0.9, s).astype(np.float32))
+    normals = torch.nn.functional.normalize(t(3, H, W) - 0.5, dim=0)
+    pkg = {"normal_map": normals, "albedo_map": t(3, H, W),
+           "roughness_map": t(1, H, W), "metallic_map": t(1, H, W),
+           "alpha_map": torch.ones(1, H, W), "normal_mask": torch.ones(1, H, W, dtype=bool)}
+    light = torch.from_numpy(rng.uniform(0.2, 0.8, (6, 8, 8, 3)).astype(np.float32))
+    mask = np.zeros((1, H, W), np.float32)
+    mask[:, 3:9, 4:12] = 1.0
+    dirs = {k: tmp_path / k for k in ("render",) + MATERIAL_DIRS}
+    for d in dirs.values():
+        os.makedirs(d)
+    cfg = TModelConfig(material=True, mask_gt=True, white_background=white)
+    bg = torch.full((3,), float(white))
+    tapp.save_material_maps(cfg, dirs, "v", cam, pkg, light,
+                            smod.get_brdf_lut("cpu"), cmod.build_mips(light), bg,
+                            [mask], 0)
+    img = np.asarray(Image.open(dirs["render"] / "v.png"))
+    outside = img[mask[0] == 0]
+    assert (outside == (255 if white else 0)).all()
+    assert not (img[mask[0] > 0] == 255).all()

@@ -245,7 +245,11 @@ def test_train_step_logs_one_span_set_with_its_counters(scene, monkeypatch):
         "instances": [float(p["num_instances"]) for p in pkgs],
         "kept_instances": [float(p["num_kept"]) for p in pkgs],
         "aligned_slots": [float(o.aligned_demand) for o in outs],
-        "tile_slots_max": c["tile_slots_max"], "tiles": [float(tiles)] * renders}
+        "tile_slots_max": c["tile_slots_max"], "tiles": [float(tiles)] * renders,
+        # The PBR pass (pbr/render.py): the frame it shades, and the view's
+        # surface mask that its loss keeps.
+        "pbr_pixels": [float(cam.height * cam.width)],
+        "pbr_fg_pixels": [float(pkgs[0]["normal_mask"].sum())]}
     assert all(0 < m <= a for m, a in zip(c["tile_slots_max"], c["aligned_slots"]))
     assert all(0 < k <= i for k, i in zip(c["kept_instances"], c["instances"]))
     assert all(k <= a for k, a in zip(c["kept_instances"], c["aligned_slots"]))
